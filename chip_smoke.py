@@ -10,17 +10,23 @@ Phases, one JSON line each:
              printed raw, as nvidia-smi gives them);
 2. build   - the CUDA kernels compiled with nvcc for sm_90a, one process
              per source, all at once;
-3. kernel  - every kernel of the eval path against its plain PyTorch
-             version at the flagship shapes, in bf16: the conv link (K1) at
-             its six configurations on the (8, 176, 608) latent, the DDIM
-             step (K3) on that latent, window attention (K4) at the four
-             Swin-L stages of a 352x1216 batch of 8, plain and shifted.
+3. kernel  - every kernel against its plain PyTorch version at the
+             flagship shapes, in bf16. Eval: the conv link (K1) at its six
+             configurations on the (8, 176, 608) latent, the DDIM step (K3)
+             on that latent, window attention (K4) at the four Swin-L
+             stages of a 352x1216 batch of 8, plain and shifted. Training:
+             the scheduler step (K2) and its backward (K6) on the
+             (4, 176, 453) latent, the conv-link backward (K5) at its six
+             configurations there (run twice: the two results must be
+             bit-equal), the window-attention backward (K7) at the four
+             Swin-L stages of a 352x906 batch of 4, plain and shifted.
              Each reports its error against its tolerance, its time, the
              plain version's time, a library call's time where one exists
              and the least time the card could take (bound);
 4. reference - swin_micro under the flagship head on the card against the
              same weights on the CPU (plain versions): backbone pyramid,
-             condition map and one denoiser call;
+             condition map and one denoiser call; then one training step
+             (loss and every parameter's gradient), f32 and bf16;
 5. serve   - the flagship configuration (Swin-L + HAHI + DDIM head, FPN 256,
              20 steps, bf16) with weights from a seed serves 3 requests of
              8 x 352x1216 through make_eval_step after one warm-up request;
@@ -28,7 +34,17 @@ Phases, one JSON line each:
              requires the kernels' launch counts of exactly 120 (K1), 20
              (K3) and 24 (K4) per request; then the device time of one
              request split into backbone, depth encode, HAHI + FPN +
-             upsample, the 20-step sampler and the decode.
+             upsample, the 20-step sampler and the decode;
+6. train   - the flagship training configuration (352x906 crops, global
+             batch 8 as 2 accumulated micro-batches of 4, 1.0*L1+1.0*L2+
+             1.0*DDIM, Adam, drop-path 0.1, per-block rematerialisation)
+             takes one warm-up and 3 timed steps through make_train_step;
+             reports step time, samples/s, peak memory and the loss terms,
+             requires finite losses and gradients, non-zero gradients in
+             every part of the model and exact launch counts of all seven
+             kernels; then the device time of one step split into backbone
+             forward, head forward, sampler, ddim_loss + decode, backward
+             and optimizer.
 
 Then a line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failed check raises, and the script exits non-zero.
@@ -37,6 +53,7 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -50,6 +67,23 @@ F32_FLOPS = 67e12  # outside the tensor cores
 B, H_IMG, W_IMG = 8, 352, 1216
 STEPS = 20
 SWIN_L = dict(depths=(2, 2, 18, 2), heads=(6, 12, 24, 48), dims=(192, 384, 768, 1536))
+# training: global batch 8 as 2 micro-batches of 4 on 352x906 crops
+B_T, ACCUM, H_T, W_T = 8, 2, 352, 906
+LINKS = [  # (name, cin, cout, gn+relu in, add+te, stats out)
+    ("ne0", 16, 64, False, False, True),
+    ("ne1", 64, 256, True, False, True),
+    ("fa", 256, 256, True, True, False),
+    ("fb", 256, 256, False, False, False),
+    ("pr0", 256, 64, False, False, True),
+    ("pr1", 64, 16, True, False, True),
+]
+
+
+def swin_stage_windows(h_img, w_img, stage):
+    """(padded height, padded width, windows) of a Swin-L stage's 7x7 grid."""
+    hh, ww = -(-h_img // (4 << stage)), -(-w_img // (4 << stage))
+    h_pad, w_pad = hh + (-hh) % 7, ww + (-ww) % 7
+    return h_pad, w_pad, (h_pad // 7) * (w_pad // 7)
 
 
 def emit(obj) -> None:
@@ -81,13 +115,16 @@ def main() -> int:
 
     import diffusiondepth_tpu_torch as port
     from diffusiondepth_tpu_torch.diffusion.ddim import DDIMSchedule
+    from diffusiondepth_tpu_torch.losses import get_loss_names
     from diffusiondepth_tpu_torch.models.backbones.swin import shifted_window_mask
     from diffusiondepth_tpu_torch.ops import native
     from diffusiondepth_tpu_torch.ops.fused_denoiser import (
-        _link_input_plain, conv_link, conv_link_plain, ddim_step, ddim_step_plain,
+        _link_input_plain, conv_link, conv_link_bwd, conv_link_bwd_plain, conv_link_plain,
+        ddim_step, ddim_step_plain, sched_bwd, sched_bwd_plain, sched_step, sched_step_plain,
     )
     from diffusiondepth_tpu_torch.ops.window_attention import (
-        window_attention, window_attention_plain,
+        window_attention, window_attention_bwd, window_attention_bwd_plain,
+        window_attention_plain,
     )
 
     # plain versions and references compute f32 in full f32
@@ -142,17 +179,9 @@ def main() -> int:
 
     # ---- 3a. K1 conv link, six configurations of the chain at the bs8 eval latent
     lh, lw = H_IMG // 2, W_IMG // 2
-    links = [  # (name, cin, cout, gn+relu, add+te, stats)
-        ("ne0", 16, 64, False, False, True),
-        ("ne1", 64, 256, True, False, True),
-        ("fa", 256, 256, True, True, False),
-        ("fb", 256, 256, False, False, False),
-        ("pr0", 256, 64, False, False, True),
-        ("pr1", 64, 16, True, False, True),
-    ]
     k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
               flops=0.0, bytes=0.0)
-    for lname, cin, cout, gn, add, stats in links:
+    for lname, cin, cout, gn, add, stats in LINKS:
         x = randn(B, lh, lw, cin, dtype=bf)
         w = randn(3, 3, cin, cout, dtype=bf, scale=(9 * cin) ** -0.5)
         bias = randn(cout, scale=0.1)
@@ -243,10 +272,7 @@ def main() -> int:
     k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
     for stage, (depth, heads, c) in enumerate(zip(SWIN_L["depths"], SWIN_L["heads"],
                                                   SWIN_L["dims"])):
-        # tokens of the stage: H/4 x W/4 halved per stage, odd sizes padded up
-        hh, ww = -(-H_IMG // (4 << stage)), -(-W_IMG // (4 << stage))
-        h_pad, w_pad = hh + (-hh) % 7, ww + (-ww) % 7
-        nw = (h_pad // 7) * (w_pad // 7)
+        h_pad, w_pad, nw = swin_stage_windows(H_IMG, W_IMG, stage)
         qkv = randn(B, nw, 49, 3 * c, dtype=bf)
         bias = randn(heads, 49, 49, scale=0.1)
         scale = (c // heads) ** -0.5
@@ -293,7 +319,212 @@ def main() -> int:
     summary["window_attention"] = k4
     sync()
 
+    # ---- 3d. K2 scheduler step and 3e. K6 its backward, on the training latent
+    tb, th_, tw_ = B_T // ACCUM, H_T // 2, W_T // 2
+    u6 = randn(tb, th_, tw_, 16, dtype=bf)
+    xl = randn(tb, th_, tw_, 16)
+    a3 = (1.0 + randn(tb, 16, scale=0.1)).contiguous()
+    b3 = randn(tb, 16, scale=0.1)
+    k2 = dict(max_abs_err=0.0)
+    k6 = dict(max_abs_err=0.0)
+    coefs = torch.zeros(tb, 8, 16, device=dev)
+    coefs[:, 0], coefs[:, 1] = a3, b3
+    coefs[:, 2] = 1.0 + randn(tb, 16, scale=0.1)
+    coefs[:, 3] = randn(tb, 16, scale=0.1)
+    coefs[:, 4] = 1.0 + randn(tb, 16, scale=0.1)
+    dxp = randn(tb, th_, tw_, 16, scale=0.01)
+    dxpb = randn(tb, th_, tw_, 16, dtype=bf, scale=0.01)
+    for i in (0, STEPS // 2, STEPS - 1):
+        s = sched_rows[i]
+        xp_k, xpb_k = sched_step(u6, a3, b3, xl, s)
+        xp_p, xpb_p = sched_step_plain(u6, a3, b3, xl, s)
+        dx_k, t6_k, ps_k = sched_bwd(dxp, dxpb, u6, coefs, s)
+        dx_p, t6_p, ps_p = sched_bwd_plain(dxp, dxpb, u6, coefs, s)
+        sync()
+        ref = xp_p.abs().max().item()
+        err = (xp_k - xp_p).abs().max().item()
+        err_b = (xpb_k.float() - xpb_p.float()).abs().max().item()
+        # x' in f32 as K3 (1e-5 of the largest value); its bf16 copy within
+        # one bf16 step of that (2^-8 relative)
+        check(err <= 1e-5 * ref and err_b <= 4e-3 * ref, f"sched_step {i}: {err} {err_b}")
+        dx_err = (dx_k - dx_p).abs().max().item()
+        t_ref = t6_p.float().abs().max().item()
+        t_err = (t6_k.float() - t6_p.float()).abs().max().item()
+        ps_err = ((ps_k.sum(1) - ps_p.sum(1)).abs().max() / ps_p.sum(1).abs().max()).item()
+        # dx: f32 closed form (1e-5); t6: one bf16 step (1e-2 of the largest
+        # value); partials: f32 sums of ~80k terms in another order (1e-4)
+        check(dx_err <= 1e-5 * dx_p.abs().max().item() and t_err <= 1e-2 * t_ref
+              and ps_err <= 1e-4, f"sched_bwd {i}: {dx_err} {t_err} {ps_err}")
+        emit({"phase": "kernel", "kernel": "sched_step+sched_bwd", "step": i,
+              "sched_step_err": err, "sched_step_bf16_err": err_b, "sched_bwd_dx_err": dx_err,
+              "sched_bwd_t6_err": t_err, "sched_bwd_partials_rel_err": ps_err})
+        k2["max_abs_err"] = max(k2["max_abs_err"], err)
+        k6["max_abs_err"] = max(k6["max_abs_err"], t_err)
+    s = sched_rows[STEPS // 2]
+    n = u6.numel()
+    k2["ms"] = cuda_ms(lambda: sched_step(u6, a3, b3, xl, s), iters * 5)
+    k2["plain_ms"] = cuda_ms(lambda: sched_step_plain(u6, a3, b3, xl, s), iters)
+    k2["bound_ms"], k2["bound_by"] = bound(n * (2 + 4 + 4 + 2) + 2 * tb * 16 * 4 + 16,
+                                           12.0 * n, F32_FLOPS)
+    k2["library_ms"] = None
+    k6["ms"] = cuda_ms(lambda: sched_bwd(dxp, dxpb, u6, coefs, s), iters * 5)
+    k6["plain_ms"] = cuda_ms(lambda: sched_bwd_plain(dxp, dxpb, u6, coefs, s), iters)
+    n_ps = ps_k.numel()
+    k6["bound_ms"], k6["bound_by"] = bound(n * (4 + 2 + 2 + 4 + 2) + coefs.numel() * 4 + 16
+                                           + n_ps * 4, 25.0 * n, F32_FLOPS)
+    k6["library_ms"] = None
+    emit({"phase": "kernel", "kernel": "sched_step", "shape": [tb, th_, tw_, 16], **k2})
+    emit({"phase": "kernel", "kernel": "sched_bwd", "shape": [tb, th_, tw_, 16], **k6})
+    summary["sched_step"], summary["sched_bwd"] = k2, k6
+    del u6, xl, dxp, dxpb
+    sync()
+
+    # ---- 3f. K5 conv-link backward, six links on the training latent
+    k5 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+              flops=0.0, bytes=0.0)
+
+    def coef8(c):
+        out = torch.zeros(tb, 8, c, device=dev)
+        out[:, 0] = 1.0 + randn(tb, c, scale=0.1)
+        out[:, 1:4] = randn(tb, 3, c, scale=0.1)
+        out[:, 4] = 1.0 + randn(tb, c, scale=0.1)
+        return out
+
+    for lname, cin, cout, gn, add, stats in LINKS:
+        # GroupNorm on the link's output (t-form r) wherever the forward
+        # emits its statistics
+        r = randn(tb, th_, tw_, cout, dtype=bf, scale=0.01)
+        w = randn(3, 3, cin, cout, dtype=bf, scale=(9 * cin) ** -0.5)
+        u_in = randn(tb, th_, tw_, cin, dtype=bf)
+        kw = {}
+        if stats:
+            kw.update(u_next=randn(tb, th_, tw_, cout, dtype=bf), coef_next=coef8(cout))
+        if gn:
+            kw["coef_in"] = coef8(cin)
+        if add:
+            kw.update(add=randn(tb, th_, tw_, cin, dtype=bf),
+                      te=randn(tb, cin, dtype=bf, scale=0.1))
+        out_k = conv_link_bwd(r, w, u_in, **kw)
+        again = conv_link_bwd(r, w, u_in, **kw)
+        out_p = conv_link_bwd_plain(r, w, u_in, **kw)
+        sync()
+        bitwise = all((a is None and b_ is None) or torch.equal(a, b_)
+                      for a, b_ in zip(out_k, again))
+        check(bitwise, f"conv_link_bwd {lname}: two launches differ")
+        names = ("t", "dw", "db", "partials", "d_add")
+        rec = {"phase": "kernel", "kernel": "conv_link_bwd", "link": lname, "cin": cin,
+               "cout": cout, "shape": [tb, th_, tw_], "bitwise_repeatable": bitwise}
+        for nm, a, b_ in zip(names, out_k, out_p):
+            if a is None:
+                continue
+            if nm == "partials":
+                a, b_ = a.sum(1), b_.sum(1)
+            ref = b_.float().abs().max().item()
+            e = (a.float() - b_.float()).abs().max().item()
+            # bf16 maps (t, d_add): one bf16 step, 1e-2 of the largest
+            # value; f32 sums over 319k pixels in another order: 1e-3
+            tol = (1e-2 if nm in ("t", "d_add") else 1e-3) * ref
+            check(math.isfinite(e) and e <= tol, f"conv_link_bwd {lname} {nm}: {e} > {tol}")
+            rec[nm + "_err"], rec[nm + "_tol"] = e, tol
+        k5["max_abs_err"] = max(k5["max_abs_err"], rec["t_err"])
+        ms = cuda_ms(lambda: conv_link_bwd(r, w, u_in, **kw), iters)
+        plain_ms = cuda_ms(lambda: conv_link_bwd_plain(r, w, u_in, **kw), max(1, iters // 3), 1)
+        # library: cuDNN's input and weight gradients of the same conv on the
+        # pre-transformed input and the assembled du
+        ci = kw.get("coef_in")
+        v = _link_input_plain(u_in, ci[:, 0] if gn else None, ci[:, 1] if gn else None, gn,
+                              kw.get("add"), kw.get("te")).to(bf).permute(0, 3, 1, 2)
+        du = r.permute(0, 3, 1, 2)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib_ms = cuda_ms(lambda: (torch.nn.grad.conv2d_input(v.shape, w_lib, du, padding=1),
+                                  torch.nn.grad.conv2d_weight(v, w_lib.shape, du, padding=1)),
+                         iters)
+        n_pix = tb * th_ * tw_
+        nbytes = (n_pix * (cout * 2 * (2 if stats else 1) + cin * 2 * (2 if add else 1)
+                           + cin * 2 * (2 if add else 1))
+                  + 9 * cin * cout * (2 + 4) + cout * 4
+                  + (8 * tb * (cout if stats else 0) + 8 * tb * (cin if gn else 0)) * 4
+                  + (tb * cin * 2 if add else 0)
+                  + (out_k[3].numel() * 4 if gn else 0))
+        flops = 4.0 * n_pix * 9 * cin * cout
+        bms, by = bound(nbytes, flops, BF16_FLOPS)
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                   tflops=flops / ms / 1e9)
+        emit(rec)
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
+                       ("library_ms", lib_ms), ("flops", flops), ("bytes", nbytes)):
+            k5[k] += val
+        del r, u_in, out_k, again, out_p, v, du
+    k5["bound_by"] = bound(k5["bytes"], k5["flops"], BF16_FLOPS)[1]
+    summary["conv_link_bwd"] = k5
+    sync()
+
+    # ---- 3g. K7 window-attention backward at the four Swin-L stages, bs4 352x906
+    k7 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    for stage, (depth, heads, c) in enumerate(zip(SWIN_L["depths"], SWIN_L["heads"],
+                                                  SWIN_L["dims"])):
+        h_pad, w_pad, nw = swin_stage_windows(H_T, W_T, stage)
+        qkv = randn(tb, nw, 49, 3 * c, dtype=bf)
+        dout = randn(tb, nw, 49, c, dtype=bf)
+        bias = randn(heads, 49, 49, scale=0.1)
+        scale = (c // heads) ** -0.5
+        for shifted in (False, True):
+            mask = (torch.from_numpy(shifted_window_mask(h_pad, w_pad, 7, 3)).to(dev)
+                    if shifted else None)
+            dq_k, db_k = window_attention_bwd(qkv, bias, mask, dout, scale, heads)
+            dq_2, db_2 = window_attention_bwd(qkv, bias, mask, dout, scale, heads)
+            dq_p, db_p = window_attention_bwd_plain(qkv, bias, mask, dout, scale, heads)
+            sync()
+            check(torch.equal(dq_k, dq_2) and torch.equal(db_k, db_2),
+                  f"window_attention_bwd s{stage}: two launches differ")
+            err = (dq_k.float() - dq_p.float()).abs().max().item()
+            ref = dq_p.float().abs().max().item()
+            db_err = (db_k - db_p).abs().max().item()
+            db_ref = db_p.abs().max().item()
+            # dqkv in bf16: one bf16 step of the largest value (2e-2, as P
+            # and dS are rounded to bf16 too); dbias: f32 sums over batch
+            # and windows in another order (1e-3)
+            check(math.isfinite(err) and err <= 2e-2 * ref and db_err <= 1e-3 * db_ref,
+                  f"window_attention_bwd s{stage}: {err} {db_err}")
+            ms = cuda_ms(lambda: window_attention_bwd(qkv, bias, mask, dout, scale, heads),
+                         iters)
+            plain_ms = cuda_ms(lambda: window_attention_bwd_plain(qkv, bias, mask, dout, scale,
+                                                                  heads),
+                               max(1, iters // 3), 1)
+            d = c // heads
+            q, k, v = (t.reshape(tb * nw, heads, 49, d).detach().clone().requires_grad_()
+                       for t in qkv.view(tb, nw, 49, 3, heads, d).permute(3, 0, 1, 4, 2, 5))
+            am = bias[None] if mask is None else bias[None] + mask[:, None]
+            am = am.to(bf).expand(tb, nw, heads, 49, 49).reshape(tb * nw, heads, 49, 49)
+            am = am.contiguous().requires_grad_()
+            lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
+            g_out = dout.view(tb, nw, 49, heads, d).permute(0, 1, 3, 2, 4).reshape(
+                tb * nw, heads, 49, d)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v, am), g_out,
+                                                         retain_graph=True), iters)
+            nbytes = (qkv.numel() * 2 * 2 + dout.numel() * 2 + bias.numel() * 4 * 2
+                      + (mask.numel() * 4 if shifted else 0))
+            flops = 10.0 * tb * nw * heads * 49 * 49 * d
+            bms, by = bound(nbytes, flops, BF16_FLOPS)
+            emit({"phase": "kernel", "kernel": "window_attention_bwd", "stage": stage,
+                  "shifted": shifted, "shape": [tb, nw, 49, 3 * c], "heads": heads,
+                  "max_abs_err": err, "tol": 2e-2 * ref, "dbias_err": db_err,
+                  "dbias_tol": 1e-3 * db_ref, "ms": ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                  "gbps": nbytes / ms / 1e6})
+            reps = depth // 2
+            for kk, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                            ("bound_ms", bms)):
+                k7[kk] += reps * val
+            k7["max_abs_err"] = max(k7["max_abs_err"], err)
+            del q, k, v, am, lib_out
+        del qkv, dout
+    k7["bound_by"] = "bytes"
+    summary["window_attention_bwd"] = k7
+    sync()
+
     launches = {k: 0 for k in port.LAUNCHES}
+    train_launches = dict(launches)
     if not args.quick:
         # ---- 4. a small input against the CPU plain versions
         def micro_cfg(opt):
@@ -340,6 +571,61 @@ def main() -> int:
               "outputs: 4 pyramid levels, condition map, one denoiser call", **ref})
         sync()
 
+        # one training step of the same micro model, card vs CPU, with the
+        # same starting latent and DDIM draws and drop-path off: the loss
+        # and every parameter's gradient
+        lat0 = torch.randn(2, 32, 48, 16, generator=cpu_gen)
+        noise = torch.randn(2, 32, 48, 16, generator=cpu_gen)
+        ts = torch.tensor([413, 77])
+        tref = {}
+        # RMS distance of each leaf, relative to that leaf's RMS or, for a
+        # gradient that vanishes analytically (a bias followed by
+        # BatchNorm), to 1e-3 of the largest leaf RMS. f32 (O0): the card's
+        # convolutions and reductions sum in other orders and the
+        # differences grow through two sampler steps, the reciprocal decode
+        # and the backward (2e-2). bf16 (O1): the kernels and the plain
+        # versions round at the same points, but a sum in another order can
+        # move a bf16 value by one step and flip a ReLU, amplified the same
+        # way (0.25)
+        for opt, tol in (("O0", 2e-2), ("O1", 0.25)):
+            gpu_m = port.build_model(micro_cfg(opt))
+            cpu_m = port.build_model(micro_cfg(opt), device="cpu")
+            cpu_m.load_state_dict(gpu_m.state_dict())
+            lc = port.LossComputer(micro_cfg(opt))
+            grads, losses = [], []
+            for m, d in ((gpu_m, dev), (cpu_m, torch.device("cpu"))):
+                m.train()
+                for stage in m.depth_backbone.stages:
+                    for blk in stage.blocks:
+                        blk.drop_path_rate = 0.0
+                head = m.depth_head
+                head._ddim_loss = functools.partial(head._ddim_loss, noise=noise.to(d),
+                                                    timesteps=ts.to(d))
+                mb = {"rgb": rgb.to(d), "gt": gt.to(d)}
+                loss = lc(mb, m(mb, init_latent=lat0.to(d)))[0] / 2
+                loss.backward()
+                losses.append(loss.item())
+                grads.append({n: p.grad.float().cpu() for n, p in m.named_parameters()
+                              if p.grad is not None})
+            g_card, g_cpu = grads
+            check(g_card.keys() == g_cpu.keys(), "micro train: gradients on different leaves")
+            rms = {n: g.square().mean().sqrt().item() for n, g in g_cpu.items()}
+            floor = 1e-3 * max(rms.values())
+            dists = {n: (g_card[n] - g_cpu[n]).square().mean().sqrt().item()
+                     / max(rms[n], floor) for n in g_cpu}
+            loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+            worst = max(dists, key=dists.get)
+            tref[opt] = {"loss": losses, "loss_rel_err": loss_err, "grad_leaves": len(dists),
+                         "worst_leaf": worst, "worst_rms_dist": dists[worst],
+                         "median_rms_dist": sorted(dists.values())[len(dists) // 2],
+                         "tol": tol}
+            check(all(math.isfinite(v) for v in dists.values()), f"micro train {opt}: not finite")
+            check(loss_err <= tol and dists[worst] <= tol, f"micro train {opt}: {tref[opt]}")
+            del gpu_m, cpu_m
+        emit({"phase": "reference", "what": "swin_micro + flagship head, one training step, "
+              "card vs CPU plain: loss and per-leaf gradients (RMS distance)", **tref})
+        sync()
+
         # ---- 5. serve the flagship configuration
         cfg = port.Config(model_name="Diffusion_DCbase_", backbone_module="swin",
                           backbone_name="swin_large_naive_l4w722422k",
@@ -382,8 +668,9 @@ def main() -> int:
             check(bool(torch.isfinite(met).all()), f"metric row not finite: {met}")
             rows.append(met[0].tolist())
         launches = dict(port.LAUNCHES)
-        expect = {"conv_link": 6 * STEPS * n_req, "ddim_step": STEPS * n_req,
-                  "window_attention": sum(SWIN_L["depths"]) * n_req}
+        expect = {k: 0 for k in port.LAUNCHES}
+        expect.update({"conv_link": 6 * STEPS * n_req, "ddim_step": STEPS * n_req,
+                       "window_attention": sum(SWIN_L["depths"]) * n_req})
         check(launches == expect, f"launch counts {launches} != {expect}")
         # where the time of one request goes, device time by part
         batch = batches[0]
@@ -421,19 +708,155 @@ def main() -> int:
               "metric_rows": rows, "launches": launches, "expected_launches": expect})
         sync()
 
-    sources = {"conv_link": ("cuda", "diffusiondepth_tpu_torch/csrc/conv_link.cu",
-                             "diffusiondepth_tpu/ops/fused_denoiser.py:63"),
-               "ddim_step": ("triton", "diffusiondepth_tpu_torch/csrc/ddim_step.py",
-                             "diffusiondepth_tpu/ops/fused_denoiser.py:1583"),
-               "window_attention": ("cuda", "diffusiondepth_tpu_torch/csrc/window_attention.cu",
-                                    "diffusiondepth_tpu/ops/window_attention.py:294")}
+        # ---- 6. train the flagship configuration
+        tcfg = port.Config(model_name="Diffusion_DCbase_", backbone_module="swin",
+                           backbone_name="swin_large_naive_l4w722422k",
+                           head_specify="DDIMDepthEstimate_Swin_ADDHAHI",
+                           inference_steps=STEPS, opt_level="O1", batch_size=B_T,
+                           accum_steps=ACCUM, patch_height=H_T, patch_width=W_T,
+                           max_depth=88.0, seed=7240).finalize()
+        t0 = time.perf_counter()
+        model = port.build_model(tcfg)
+        optimizer = port.make_optimizer(tcfg, 100, model)
+        lc = port.LossComputer(tcfg)
+        step = port.make_train_step(model, lc, optimizer, accum_steps=tcfg.accum_steps)
+        sync()
+        build_s = time.perf_counter() - t0
+        tgen = torch.Generator(device=dev).manual_seed(tcfg.seed)
+
+        def train_batch():
+            gt = (torch.rand(B_T, H_T, W_T, 1, generator=tgen, device=dev) * 80).clamp(0, 88)
+            return {"rgb": torch.randn(B_T, H_T, W_T, 3, generator=tgen, device=dev), "gt": gt}
+
+        t0 = time.perf_counter()
+        step(train_batch(), generator=tgen)
+        sync()
+        warm_s = time.perf_counter() - t0
+        n_steps = 3
+        batches = [train_batch() for _ in range(n_steps)]
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        # per step, 2 micro-batches of: the sampler's 20 steps (6 K1 + K2
+        # forward; 6 K1 recomputed + K6 + 6 K5 backward), the ddim_loss
+        # denoiser call (6 K1 forward; 6 K1 recomputed + 6 K5 backward), and
+        # 24 Swin blocks (K4 forward and again in the rematerialised
+        # backward, K7 backward)
+        n_blk = sum(SWIN_L["depths"])
+        t_expect = {"conv_link": ACCUM * 2 * 6 * (STEPS + 1), "ddim_step": 0,
+                    "window_attention": ACCUM * 2 * n_blk, "sched_step": ACCUM * STEPS,
+                    "conv_link_bwd": ACCUM * 6 * (STEPS + 1), "sched_bwd": ACCUM * STEPS,
+                    "window_attention_bwd": ACCUM * n_blk}
+        step_ms, terms = [], []
+        for batch in batches:
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, loss_val, met = step(batch, generator=tgen)
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            t_launches = dict(port.LAUNCHES)
+            check(t_launches == t_expect, f"train launch counts {t_launches} != {t_expect}")
+            terms.append(loss_val[0].tolist())
+            check(bool(torch.isfinite(loss_val).all()) and bool(torch.isfinite(met).all()),
+                  f"train step not finite: {loss_val} {met}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        groups = {"denoiser": ("depth_head.model.noise_embedding", "depth_head.model.pred",
+                               "depth_head.model.upsample_add"),
+                  "timestep_embedding": ("depth_head.model.time_embedding",),
+                  "neck": ("depth_head.hahineck.",),
+                  "fpn": ("depth_head.conv_lateral.", "depth_head.conv_up."),
+                  "depth_transform_decoder": ("depth_head.depth_transform.conv_inv_transform",),
+                  "backbone": ("depth_backbone.",)}
+        gsum = {g: 0.0 for g in groups}
+        n_grads = 0
+        for n_, p in model.named_parameters():
+            if p.grad is None:
+                continue
+            n_grads += 1
+            check(bool(torch.isfinite(p.grad).all()), f"non-finite gradient in {n_}")
+            for g, prefixes in groups.items():
+                if n_.startswith(prefixes):
+                    gsum[g] += p.grad.abs().sum().item()
+        check(all(v > 0 for v in gsum.values()), f"zero gradients in a part: {gsum}")
+        emit({"phase": "train", "config": "Diffusion_DCbase_ swin_large_naive_l4w722422k "
+              "DDIMDepthEstimate_Swin_ADDHAHI O1 1.0*L1+1.0*L2+1.0*DDIM ADAM",
+              "global_batch": B_T, "accum_steps": ACCUM, "crop": [H_T, W_T], "steps": STEPS,
+              "build_s": build_s, "warmup_s": warm_s, "step_ms": step_ms,
+              "samples_per_s": B_T * n_steps / (sum(step_ms) / 1e3),
+              "max_memory_allocated_gb": peak_gb, "loss_names": get_loss_names(tcfg),
+              "loss_rows": terms, "params_with_grad": n_grads, "grad_abs_sum": gsum,
+              "launches_per_step": t_launches, "expected_launches": t_expect})
+        train_launches = t_launches
+
+        # where the time of one training step goes, device time by part
+        tparts = {k: 0.0 for k in ("backbone_fwd_ms", "head_fwd_ms", "sampler_ms",
+                                   "ddim_loss_and_decode_ms", "backward_ms", "optimizer_ms")}
+
+        def tpart(name, fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            sync()
+            tparts[name] += start.elapsed_time(end)
+            return out
+
+        batch = batches[0]
+        head = model.depth_head
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        mbs = B_T // ACCUM
+        for i in range(ACCUM):
+            mb = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
+            fp = tpart("backbone_fwd_ms", lambda: model.depth_backbone(mb["rgb"], generator=tgen))
+
+            def head_fwd():
+                gt_t = head.depth_transform.t(mb["gt"])
+                return gt_t, head.model.upsample_condition(
+                    head.fpn_condition(head.hahineck(fp)), gt_t.shape[1:3])
+
+            gt_t, cond = tpart("head_fwd_ms", head_fwd)
+            lat = tpart("sampler_ms", lambda: head._sample(
+                cond, (mbs, gt_t.shape[1], gt_t.shape[2], 16), tgen))
+            loss = tpart("ddim_loss_and_decode_ms", lambda: lc(mb, {
+                "pred": head.depth_transform.inv_t(lat),
+                "ddim_loss": head._ddim_loss(lat, cond, tgen)})[0])
+            tpart("backward_ms", loss.backward)
+            del fp, gt_t, cond, lat, loss
+
+        def opt_step():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(B_T)
+            optimizer.step()
+
+        tpart("optimizer_ms", opt_step)
+        emit({"phase": "train_breakdown", "step": "global batch 8 = 2 x 4, 352x906, 20 steps",
+              **tparts, "sum_ms": sum(tparts.values())})
+        del model, optimizer, step, batches, batch
+        sync()
+
+    # (route, source, TPU kernel, the path whose run counts its launches:
+    # the path at whose shapes the kernel phase timed it). K1 and K4 run on
+    # both paths; the train line holds their training counts
+    csrc = "diffusiondepth_tpu_torch/csrc/"
+    fd_py = "diffusiondepth_tpu/ops/fused_denoiser.py"
+    wa_py = "diffusiondepth_tpu/ops/window_attention.py"
+    sources = {"conv_link": ("cuda", csrc + "conv_link.cu", fd_py + ":63", "serve"),
+               "ddim_step": ("triton", csrc + "ddim_step.py", fd_py + ":1583", "serve"),
+               "window_attention": ("cuda", csrc + "window_attention.cu", wa_py + ":294", "serve"),
+               "sched_step": ("triton", csrc + "ddim_step.py", fd_py + ":1271", "train"),
+               "conv_link_bwd": ("cuda", csrc + "conv_link_bwd.cu", fd_py + ":732", "train"),
+               "sched_bwd": ("triton", csrc + "sched_bwd.py", fd_py + ":1293", "train"),
+               "window_attention_bwd": ("cuda", csrc + "window_attention_bwd.cu",
+                                        wa_py + ":497", "train")}
     emit({"kernels": [
-        {"name": k, "route": sources[k][0], "source": sources[k][1], "replaces": sources[k][2],
-         "launches": launches[k], "max_abs_err": summary[k]["max_abs_err"],
-         "ms": summary[k]["ms"], "plain_ms": summary[k]["plain_ms"],
-         "bound_ms": summary[k]["bound_ms"], "bound_by": summary[k]["bound_by"],
-         "library_ms": summary[k]["library_ms"]}
-        for k in ("conv_link", "ddim_step", "window_attention")]})
+        {"name": k, "route": src[0], "source": src[1], "replaces": src[2], "path": src[3],
+         "launches": (train_launches if src[3] == "train" else launches)[k],
+         "max_abs_err": summary[k]["max_abs_err"], "ms": summary[k]["ms"],
+         "plain_ms": summary[k]["plain_ms"], "bound_ms": summary[k]["bound_ms"],
+         "bound_by": summary[k]["bound_by"], "library_ms": summary[k]["library_ms"]}
+        for k, src in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,6 @@
-"""The eval DDIM update as a Triton kernel (kernel K3 of the port).
+"""The DDIM update as Triton kernels: K3 (eval) and K2 (training).
 
-Replaces the TPU kernel diffusiondepth_tpu/ops/fused_denoiser.py
+K3 replaces the TPU kernel diffusiondepth_tpu/ops/fused_denoiser.py
 _flat_ddim_kernel (reached through flat_ddim_update), and absorbs the
 GroupNorm-3 affine + ReLU finish that the JAX eval path runs in XLA glue
 before it (fused_denoiser_apply's last lines):
@@ -21,6 +21,15 @@ What the design does about it: one pass, each byte once, contiguous
 1024-element blocks; the per-(batch, channel) affine is gathered from a
 (B, 16) table that stays in L1. The TPU's grouped (B, H, G, 128) layout
 was a lane-padding workaround and is not carried over.
+
+K2, the same kernel compiled with ``PAIR``, replaces the TPU kernel
+diffusiondepth_tpu/ops/fused_denoiser.py _sched_step_kernel (reached through
+_sched_step inside fused_sampler_step): the same arithmetic, writing x' in
+f32 and rounded to bf16, the (f32, bf16) latent pair of the training
+sampler, in the same pass. Bound by bytes as K3, with 2 more bytes written
+per element (~72 MB per step at the training latent (4, 176, 453, 16),
+~22 us at 3.35 TB/s). Its own launch name tells the training and eval
+paths apart.
 
 This file is loaded by ``diffusiondepth_tpu_torch.ops.fused_denoiser`` only
 when it launches the kernel: it imports triton, which only the machine
@@ -43,8 +52,8 @@ def _round_bf16(v):
 
 
 @triton.jit
-def ddim_step_kernel(u_ptr, x_ptr, a_ptr, b_ptr, s_ptr, out_ptr, n, per_batch,
-                     C: tl.constexpr, BLOCK: tl.constexpr):
+def ddim_step_kernel(u_ptr, x_ptr, a_ptr, b_ptr, s_ptr, out_ptr, outb_ptr, n, per_batch,
+                     C: tl.constexpr, BLOCK: tl.constexpr, PAIR: tl.constexpr):
     pid = tl.program_id(0)
     offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     m = offs < n
@@ -62,13 +71,17 @@ def ddim_step_kernel(u_ptr, x_ptr, a_ptr, b_ptr, s_ptr, out_ptr, n, per_batch,
     sq = tl.load(s_ptr + 3)
     x0 = (x - sb * eps) / sa
     e2 = (x - sa * x0) / sb
-    tl.store(out_ptr + offs, sp * x0 + sq * e2, mask=m)
+    xp = sp * x0 + sq * e2
+    tl.store(out_ptr + offs, xp, mask=m)
+    if PAIR:
+        tl.store(outb_ptr + offs, xp.to(tl.bfloat16), mask=m)
 
 
-def launch(u6, x, aeff, beff, sched, out):
+def launch(u6, x, aeff, beff, sched, out, out_b=None):
+    """K3 writes x' to ``out`` (f32); K2, given ``out_b``, also to ``out_b`` (bf16)."""
     n = x.numel()
     B, H, W, C = x.shape
     block = 1024
     ddim_step_kernel[(triton.cdiv(n, block),)](
-        u6, x, aeff, beff, sched, out, n, H * W * C, C=C, BLOCK=block,
-        num_warps=4)
+        u6, x, aeff, beff, sched, out, out if out_b is None else out_b, n, H * W * C,
+        C=C, BLOCK=block, PAIR=out_b is not None, num_warps=4)

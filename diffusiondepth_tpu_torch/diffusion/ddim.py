@@ -125,6 +125,24 @@ class DDIMSchedule:
         ).astype(np.float32)
         return InferenceTables(timesteps, alpha_t, alpha_prev)
 
+    def _sqrt_alphas(self, timesteps: torch.Tensor, like: torch.Tensor):
+        acp = torch.as_tensor(self.alphas_cumprod, dtype=like.dtype, device=like.device)
+        a = acp[timesteps.to(like.device)]
+        a = a.reshape(a.shape + (1,) * (like.ndim - a.ndim))
+        return torch.sqrt(a), torch.sqrt(1.0 - a)
+
+    def add_noise(self, original_samples: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) = sqrt(a_t) x_0 + sqrt(1 - a_t) noise, per-sample t."""
+        sa, sb = self._sqrt_alphas(timesteps, original_samples)
+        return sa * original_samples + sb * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        """v-prediction target sqrt(a_t) noise - sqrt(1 - a_t) sample."""
+        sa, sb = self._sqrt_alphas(timesteps, sample)
+        return sa * noise - sb * sample
+
     def step_from_alphas(
         self,
         model_output: torch.Tensor,

@@ -1,12 +1,19 @@
-"""Swin Transformer backbone, NHWC, eval path (port of
+"""Swin Transformer backbone, NHWC (port of
 ``diffusiondepth_tpu/models/backbones/swin.py``).
 
 Parameter names follow the reference's mmcv Swin
 (``patch_embed.projection``, ``stages.{i}.blocks.{j}.attn.w_msa.qkv``,
 ``...ffn.layers.0.0``, ``stages.{i}.downsample.reduction``, ``norm{i}``), so
 a reference state dict loads as it is. Window attention runs through
-``ops.window_attention.window_attention`` (kernel K4 on the card) straight
-from the qkv Linear output.
+``ops.window_attention.WindowAttentionQKV`` (kernel K4 forward, K7
+backward on the card) straight from the qkv Linear output.
+
+Training mode adds drop-path (rate ``linspace(0, drop_path_rate, depth)``
+over the blocks) and per-block rematerialisation with
+``torch.utils.checkpoint``. The checkpoint restores the global RNG, not an
+explicit ``torch.Generator``, so each block's drop-path masks are drawn
+before the checkpointed call and passed in: the recompute uses the same
+masks.
 
 Known details kept from the reference: the block pads after ``norm1`` (the
 padded tokens are zeros), the shift is a roll by -shift before attention and
@@ -23,10 +30,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ...ops.window_attention import window_attention
+from ...ops.window_attention import WindowAttentionQKV
 from ...registry import BACKBONES
-from ..common import conv2d_nhwc, layer_norm, linear
+from ..common import conv2d_nhwc, drop_path, layer_norm, linear
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,7 +104,7 @@ class WindowMSA(nn.Module):
         qkv = linear(x, self.qkv, self.dtype)
         bias = self.relative_position_bias_table[self.relative_position_index]
         bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
-        out = window_attention(qkv.contiguous(), bias, mask, self.scale, self.num_heads)
+        out = WindowAttentionQKV.apply(qkv.contiguous(), bias, mask, self.scale, self.num_heads)
         return linear(out, self.proj, self.dtype)
 
 
@@ -120,6 +128,7 @@ class SwinBlock(nn.Module):
                  window_size: int = 7, shift: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.drop_path_rate = 0.0  # training only; SwinTransformer sets it
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
         self.dtype = dtype
@@ -136,7 +145,9 @@ class SwinBlock(nn.Module):
                 h_pad, w_pad, self.window_size, self.shift)).to(device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: (2, B) bool drop-path masks of the attention and FFN
+        branches, or None for no drop-path."""
         b, h, w, c = x.shape
         ws = self.window_size
         shortcut = x
@@ -156,12 +167,16 @@ class SwinBlock(nn.Module):
             y = torch.roll(y, (self.shift, self.shift), dims=(1, 2))
         if pad_b or pad_r:
             y = y[:, :h, :w, :]
+        if keep is not None:
+            y = drop_path(y, keep[0], self.drop_path_rate)
         x = shortcut + y
 
         fc1, fc2 = self.ffn.layers[0][0], self.ffn.layers[1]
         y = layer_norm(x, self.norm2, self.dtype)
         y = F.gelu(linear(y, fc1, self.dtype))
         y = linear(y, fc2, self.dtype)
+        if keep is not None:
+            y = drop_path(y, keep[1], self.drop_path_rate)
         return x + y
 
 
@@ -212,12 +227,15 @@ class SwinStage(nn.Module):
 
 
 class SwinTransformer(nn.Module):
-    """Four-stage Swin pyramid returning NHWC maps (eval: no dropout, no
-    drop-path, no activation checkpointing)."""
+    """Four-stage Swin pyramid returning NHWC maps. Eval: no drop-path, no
+    activation checkpointing. Training: drop-path at
+    ``linspace(0, drop_path_rate, total depth)`` (masks from the caller's
+    generator) and, under grad, each block rematerialised in the backward.
+    Dropout rates are 0, as in the shipped configs."""
 
     def __init__(self, embed_dims: int = 96, patch_size: int = 4, window_size: int = 7,
                  mlp_ratio: int = 4, depths: Sequence[int] = (2, 2, 6, 2),
-                 num_heads: Sequence[int] = (3, 6, 12, 24),
+                 num_heads: Sequence[int] = (3, 6, 12, 24), drop_path_rate: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
@@ -232,13 +250,28 @@ class SwinTransformer(nn.Module):
             self.add_module(f"norm{i}", nn.LayerNorm(dims, eps=1e-5))
             dims *= 2
         self.stages = nn.ModuleList(stages)
+        blocks = [blk for stage in self.stages for blk in stage.blocks]
+        for blk, rate in zip(blocks, np.linspace(0, drop_path_rate, len(blocks)).tolist()):
+            blk.drop_path_rate = rate
 
-    def forward(self, x: torch.Tensor):
+    def _block(self, blk: SwinBlock, x: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training:
+            return blk(x)
+        keep = None
+        if blk.drop_path_rate > 0:
+            keep = (torch.rand((2, x.shape[0]), generator=generator, device=x.device)
+                    < 1.0 - blk.drop_path_rate)
+        if torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(blk, x, keep, use_reentrant=False)
+        return blk(x, keep)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         x = self.patch_embed(x)
         outs = []
         for i, stage in enumerate(self.stages):
             for blk in stage.blocks:
-                x = blk(x)
+                x = self._block(blk, x, generator)
             outs.append(layer_norm(x, getattr(self, f"norm{i}"), self.dtype))
             if stage.downsample is not None:
                 x = stage.downsample(x)

@@ -6,8 +6,8 @@ with ``dtype=torch.bfloat16`` casts its input and parameters to bf16 for the
 product and adds the bias in bf16, as flax modules do under the bf16
 policy; normalisations compute their statistics in f32.
 
-The slice is the eval path: ``BatchNorm2d`` uses its running statistics and
-has no training mode yet (ROADMAP, training slice).
+``BatchNorm2d`` uses its running statistics in eval mode and the batch
+statistics in training mode.
 """
 
 from __future__ import annotations
@@ -69,12 +69,19 @@ def act_fn(x: torch.Tensor, name: Optional[str], negative_slope: float = 0.2) ->
 
 
 class BatchNorm2d(nn.Module):
-    """Eval BatchNorm with the reference's parameter and buffer names;
-    f32 arithmetic, output in the compute dtype."""
+    """BatchNorm over an NHWC map with the reference's parameter and buffer
+    names; f32 arithmetic, output in the compute dtype.
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    Training mode normalises with the batch statistics as flax does (mean
+    and var = E[x^2] - E[x]^2, the biased variance, clamped at 0) and
+    updates the running statistics by hand with torch momentum 0.1 (flax
+    momentum 0.9) from that biased variance; ``F.batch_norm`` would store
+    the unbiased one."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -82,12 +89,26 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm2d of the port is eval-only; training is the next "
-                "slice (ROADMAP Queue 1, M10)")
-        y = x.float() - self.running_mean
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            xf = x.float()
+            axes = tuple(range(xf.ndim - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+        else:
+            xf, mean, var = x.float(), self.running_mean, self.running_var
+        y = xf - mean
+        mul = torch.rsqrt(var + self.eps) * self.weight
         return (y * mul + self.bias).to(_dt(dtype, x))
+
+
+def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """Stochastic depth: ``keep_mask`` (B,) bool keeps a sample's residual
+    branch, scaled by 1 / (1 - rate), and zeroes it otherwise."""
+    keep = keep_mask.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class ConvBNAct(nn.Sequential):

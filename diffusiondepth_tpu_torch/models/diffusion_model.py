@@ -36,12 +36,11 @@ class Diffusion_DCbase_Model(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """sample keys (NHWC): rgb (B, H, W, 3), gt (B, H, W, 1); the other
         keys of the reference contract (dep, depth_map, depth_mask) are not
-        read by this model."""
-        if self.training:
-            raise NotImplementedError(
-                "the port runs the eval path only; training is the next slice "
-                "(ROADMAP Queue 1, M10)")
-        fp = self.depth_backbone(sample["rgb"])
+        read by this model. In training mode (``model.train()``) BatchNorm
+        uses batch statistics, the backbone draws its drop-path masks and
+        the head its ddim_loss draws from ``generator``, and the output
+        holds ``ddim_loss``."""
+        fp = self.depth_backbone(sample["rgb"], generator=generator)
         return self.depth_head(fp, gt_depth_map=sample.get("gt"),
                                init_latent=init_latent, generator=generator)
 

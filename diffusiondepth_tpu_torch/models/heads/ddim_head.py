@@ -1,4 +1,4 @@
-"""DDIM depth-estimation head, eval path (port of
+"""DDIM depth-estimation head (port of
 ``diffusiondepth_tpu/models/heads/ddim_head.py``).
 
 1. (optional) HAHI neck over the backbone pyramid;
@@ -8,14 +8,18 @@
    no host synchronisation per step;
 5. ``inv_t`` decodes the latent to metric depth.
 
-Under the bf16 policy each step is the fused denoiser chain (six
+Under the bf16 policy each eval step is the fused denoiser chain (six
 conv-link kernels) and one DDIM-step kernel, the counterpart of the JAX
-eval path's grouped-flat branch. In f32 each step is the module denoiser
-and ``DDIMSchedule.step_from_alphas``, the JAX jnp path. The latent and
-all scheduler math stay f32.
+eval path's grouped-flat branch; each training step is one
+``FusedSamplerStep`` on the (f32, bf16) latent pair, the counterpart of
+the JAX training branch (``fused_sampler_step``), and gradients flow back
+through all steps. In f32 each step is the module denoiser and
+``DDIMSchedule.step_from_alphas``, the JAX jnp path. The latent and all
+scheduler math stay f32.
 
-The self-diffusion ``ddim_loss`` is a training term and is not computed at
-eval (training is the next slice).
+In training mode the head also computes the self-diffusion ``ddim_loss``:
+noise added to its own refined latent at a random timestep per sample,
+regressed by one denoiser call.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 import torch.nn as nn
 
 from ...diffusion.ddim import DDIMSchedule
-from ...ops.fused_denoiser import ddim_step, denoiser_chain
+from ...ops.fused_denoiser import FusedSamplerStep, ddim_step, denoiser_chain
 from ...ops.resize import adaptive_avg_pool2d
 from ...registry import HEADS
 from ..common import ConvBNAct, DeconvBNAct
@@ -93,10 +97,17 @@ class DDIMDepthEstimateHead(nn.Module):
 
         if self.model.fused_active():  # epsilon prediction, no clipping
             sched = torch.from_numpy(tables.sched()).to(dev)
-            params = self.model.chain_params()
             cond = cond_latent.to(torch.bfloat16).contiguous()
             te_all = self.model.time_embed(timesteps)  # (steps, C) bf16
             b = x.shape[0]
+            if self.training:  # the (f32, bf16) latent pair, differentiable
+                flat = self.model.chain_flat()
+                xb = x.to(torch.bfloat16)
+                for i in range(len(tables.timesteps)):
+                    te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
+                    x, xb = FusedSamplerStep.apply(x, xb, cond, te_b, sched[i], *flat)
+                return x
+            params = self.model.chain_params()
             for i in range(len(tables.timesteps)):
                 te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
                 u6, a3, b3 = denoiser_chain(params, x.to(torch.bfloat16), cond, te_b)
@@ -110,6 +121,24 @@ class DDIMDepthEstimateHead(nn.Module):
             x, _ = self.schedule.step_from_alphas(eps, x, a_t[i], a_prev[i], eta=0.0,
                                                   use_clipped_model_output=True)
         return x
+
+    def _ddim_loss(self, refined_latent: torch.Tensor, cond_latent: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   timesteps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Self-diffusion noise-regression loss. ``noise`` and
+        ``timesteps`` (one per sample) are drawn from ``generator`` unless
+        given (the tests hand both packages the same draws)."""
+        b, dev = refined_latent.shape[0], refined_latent.device
+        if noise is None:
+            noise = torch.randn(refined_latent.shape, generator=generator, device=dev,
+                                dtype=refined_latent.dtype)
+        if timesteps is None:
+            timesteps = torch.randint(0, self.schedule.num_train_timesteps, (b,),
+                                      generator=generator, device=dev)
+        noisy = self.schedule.add_noise(refined_latent, noise, timesteps)
+        noise_pred = self.model(noisy, timesteps, cond_latent)
+        return torch.mean(torch.square(noise_pred.float() - noise.float()))
 
     def forward(self, fp: Sequence[torch.Tensor], gt_depth_map: torch.Tensor,
                 init_latent: Optional[torch.Tensor] = None,
@@ -125,11 +154,13 @@ class DDIMDepthEstimateHead(nn.Module):
         latent_shape = (gt_map_t.shape[0], gt_map_t.shape[1], gt_map_t.shape[2],
                         self.depth_feature_dim)
         refined = self._sample(cond_latent, latent_shape, generator, init_latent)
+        pred = self.depth_transform.inv_t(refined)
         return {
-            "pred": self.depth_transform.inv_t(refined),
+            "pred": pred,
             "pred_init": gt_map_t,
             "blur_depth_t": gt_map_t,
-            "ddim_loss": None,
+            "ddim_loss": (self._ddim_loss(refined, cond_latent, generator)
+                          if self.training else None),
             "gt_map_t": gt_map_t,
             "pred_uncertainty": None,
             "pred_inter": None,

@@ -8,21 +8,23 @@ condition map comes in already at latent resolution (``upsample_condition``
 runs once, outside the sampling loop).
 
 Under the bf16 policy the six convs run as the fused chain of
-``ops/fused_denoiser.py`` (kernel K1 on the card), as the JAX package's
-fused Pallas chain does; in f32 the module path below runs, which is the
-JAX package's jnp path. Only the 'upsample_add' fusion of the Swin heads
+``ops/fused_denoiser.py`` (kernel K1 on the card, ``FusedDenoiser``: its
+backward is kernel K5), as the JAX package's fused Pallas chain does; in
+f32 the module path below runs, which is the JAX package's jnp path. Only the 'upsample_add' fusion of the Swin heads
 is ported ('add' and 'upsample_concat' wait, ROADMAP M4).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.fused_denoiser import denoiser_chain, finish_eps
+from ...ops.fused_denoiser import (
+    CHAIN_KEYS, CONV_KEYS, FusedDenoiser, chain_params_from_flat,
+)
 from ...ops.resize import resize_bilinear
 from ..common import conv2d_nhwc, group_norm_nhwc
 
@@ -68,23 +70,27 @@ class ScheduledCNNRefine(nn.Module):
         te = w[torch.as_tensor(t, device=w.device)]
         return te.to(self.dtype) if self.dtype is not None else te
 
+    def chain_flat(self) -> List[torch.Tensor]:
+        """The chain's f32 parameters in ``CHAIN_KEYS`` order, (weight,
+        bias) each, conv weights as (3, 3, Cin, Cout): the leaves the
+        autograd Functions take."""
+        ne, pr = self.noise_embedding, self.pred
+        mods = {"ne0": ne[0], "gn0": ne[1], "ne1": ne[3], "gn1": ne[4],
+                "fa": self.upsample_add.convA.conv, "fb": self.upsample_add.convB.conv,
+                "pr0": pr[0], "gn2": pr[1], "pr1": pr[3], "gn3": pr[4]}
+        flat = []
+        for k in CHAIN_KEYS:
+            m = mods[k]
+            w = m.weight.permute(2, 3, 1, 0).contiguous() if k in CONV_KEYS else m.weight
+            flat += [w, m.bias]
+        return flat
+
     def chain_params(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
         """Weights of the six links as ``denoiser_chain`` takes them:
         conv (3, 3, Cin, Cout) bf16 + f32 bias, GroupNorm f32 (scale, bias).
-        Made once per sampling call, outside the step loop."""
-        def conv(c):
-            return (c.weight.detach().permute(2, 3, 1, 0).contiguous().to(torch.bfloat16),
-                    c.bias.detach().float().contiguous())
-
-        def gn(g):
-            return g.weight.detach().float(), g.bias.detach().float()
-
-        ne, pr = self.noise_embedding, self.pred
-        return {
-            "ne0": conv(ne[0]), "gn0": gn(ne[1]), "ne1": conv(ne[3]), "gn1": gn(ne[4]),
-            "fa": conv(self.upsample_add.convA.conv), "fb": conv(self.upsample_add.convB.conv),
-            "pr0": conv(pr[0]), "gn2": gn(pr[1]), "pr1": conv(pr[3]), "gn3": gn(pr[4]),
-        }
+        They stay in the autograd graph of the f32 parameters. Made once
+        per sampling call, outside the step loop."""
+        return chain_params_from_flat(self.chain_flat())
 
     def _block(self, seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
         for conv, gn in ((seq[0], seq[1]), (seq[3], seq[4])):
@@ -100,10 +106,10 @@ class ScheduledCNNRefine(nn.Module):
         if self.fused_active():
             b = noisy_latent.shape[0]
             te_b = te.expand(b, te.shape[-1]) if te.ndim == 1 else te
-            u6, a3, b3 = denoiser_chain(
-                self.chain_params(), noisy_latent.to(torch.bfloat16).contiguous(),
-                cond_latent.to(torch.bfloat16).contiguous(), te_b.contiguous())
-            return finish_eps(u6, a3, b3)
+            return FusedDenoiser.apply(
+                noisy_latent.to(torch.bfloat16).contiguous(),
+                cond_latent.to(torch.bfloat16).contiguous(), te_b.contiguous(),
+                *self.chain_flat())
         te = te[None, None, None, :] if te.ndim == 1 else te[:, None, None, :]
         h = cond_latent + te.to(cond_latent.dtype) + self._block(self.noise_embedding, noisy_latent)
         for m in (self.upsample_add.convA.conv, self.upsample_add.convB.conv):

@@ -8,33 +8,67 @@ CPU tests import every module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name. A wrapper adds one
 exactly where it launches its kernel; calls that take the plain PyTorch
-version (CPU tensors) add nothing.
+version (CPU tensors) add nothing. ``triton_module`` loads a Triton source
+of ``csrc/`` the same way, at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-CUDA_SOURCES = ("conv_link", "window_attention")
+CUDA_SOURCES = ("conv_link", "window_attention", "conv_link_bwd", "window_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
-LAUNCHES: Dict[str, int] = {"conv_link": 0, "ddim_step": 0, "window_attention": 0}
+LAUNCHES: Dict[str, int] = {
+    "conv_link": 0, "ddim_step": 0, "window_attention": 0,
+    "sched_step": 0, "conv_link_bwd": 0, "sched_bwd": 0, "window_attention_bwd": 0,
+}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_TRITON: Dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def no_autograd(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the raw
+    kernel wrappers write their results through ``ctypes`` or Triton and
+    return tensors without a ``grad_fn``, so a gradient would silently stop
+    there. The ``torch.autograd.Function``s of ``ops/`` call them with grad
+    mode off. The check runs for CPU tensors too, where the plain versions
+    would differentiate, so that a CPU run shows the fault."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no autograd: call it under torch.no_grad or through its "
+            "torch.autograd.Function (FusedDenoiser, FusedSamplerStep, WindowAttentionQKV)")
+
+
+def triton_module(name: str):
+    """The module ``csrc/<name>.py`` (it imports triton), loaded at first
+    use; Triton's compiled kernels go beside the CUDA builds."""
+    mod = _TRITON.get(name)
+    if mod is None:
+        os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+        spec = importlib.util.spec_from_file_location(f"_{name}_triton", CSRC_DIR / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _TRITON[name] = mod
+    return mod
 
 
 def _nvcc() -> str:

@@ -1,9 +1,14 @@
-"""Swin window attention fed straight from the qkv Dense output.
+"""Swin window attention fed straight from the qkv Dense output, and its
+backward.
 
 Port of the fused-input attention of ``diffusiondepth_tpu/ops/window_attention.py``
-(``window_attention_qkv_pallas``, kernels ``_qkv_kernel_masked/_nomask``).
-``window_attention`` launches the CUDA kernel ``csrc/window_attention.cu``
-on a CUDA tensor and runs ``window_attention_plain`` on a CPU tensor.
+(``window_attention_qkv_pallas``, kernels ``_qkv_kernel_masked/_nomask``,
+and ``window_attention_qkv_bwd_pallas``, kernels
+``_qkv_bwd_kernel_masked/_nomask``). ``window_attention`` launches the CUDA
+kernel ``csrc/window_attention.cu`` (K4) and ``window_attention_bwd`` the
+kernel ``csrc/window_attention_bwd.cu`` (K7) on a CUDA tensor; both run
+their plain versions on a CPU tensor. ``WindowAttentionQKV`` is the
+``torch.autograd.Function`` the Swin blocks call.
 """
 
 from __future__ import annotations
@@ -50,22 +55,7 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
     return out.reshape(b, nw, n, c).to(dt)
 
 
-@functools.lru_cache(maxsize=None)
-def _launch_fn():
-    fn = native.load("window_attention").window_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
-                     mask: Optional[torch.Tensor], scale: float,
-                     num_heads: int) -> torch.Tensor:
-    """qkv (B, nW, N, 3C) -> (B, nW, N, C): the CUDA kernel on the card,
-    the plain version for a CPU tensor."""
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, bias, mask, scale, num_heads)
+def _check(qkv, bias, mask, num_heads, dout=None):
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     b, nw, n, c3 = qkv.shape
@@ -80,9 +70,34 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"bias must be f32 {(num_heads, n, n)}, got {bias.dtype} {tuple(bias.shape)}")
     if mask is not None and (mask.shape != (nw, n, n) or mask.dtype != torch.float32):
         raise ValueError(f"mask must be f32 {(nw, n, n)}, got {mask.dtype} {tuple(mask.shape)}")
-    for t in (qkv, bias) + ((mask,) if mask is not None else ()):
-        if not t.is_contiguous() or t.device != qkv.device:
-            raise ValueError("qkv, bias and mask must be contiguous on one device")
+    if dout is not None and (dout.shape != (b, nw, n, c) or dout.dtype != qkv.dtype):
+        raise ValueError(f"dout must be {qkv.dtype} {(b, nw, n, c)}, got {dout.dtype} "
+                         f"{tuple(dout.shape)}")
+    for t in (qkv, bias, mask, dout):
+        if t is not None and (not t.is_contiguous() or t.device != qkv.device):
+            raise ValueError("qkv, bias, mask and dout must be contiguous on one device")
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    fn = native.load("window_attention").window_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
+                     mask: Optional[torch.Tensor], scale: float,
+                     num_heads: int) -> torch.Tensor:
+    """qkv (B, nW, N, 3C) -> (B, nW, N, C): the CUDA kernel on the card,
+    the plain version for a CPU tensor."""
+    native.no_autograd("window_attention", qkv, bias, mask)
+    if qkv.device.type == "cpu":
+        return window_attention_plain(qkv, bias, mask, scale, num_heads)
+    _check(qkv, bias, mask, num_heads)
+    b, nw, n, c3 = qkv.shape
+    c = c3 // 3
     out = torch.empty((b, nw, n, c), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):  # the launch goes to the current device
         err = _launch_fn()(qkv.data_ptr(), bias.data_ptr(),
@@ -93,3 +108,93 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     native.check(err, "window_attention")
     native.LAUNCHES["window_attention"] += 1
     return out
+
+
+def window_attention_bwd_plain(qkv: torch.Tensor, bias: torch.Tensor,
+                               mask: Optional[torch.Tensor], dout: torch.Tensor,
+                               scale: float, num_heads: int):
+    """The backward kernel's arithmetic in plain PyTorch, following the JAX
+    kernel's ``_qkv_bwd_core``: P recomputed in f32 as the forward does
+    (q * scale rounded to the input type), then dV = P^ dO with P^ = P in
+    the input type, dP = dO V^T, dS = P (dP - rowsum(dP P)) in f32,
+    dQ = S^ K scale and dK = S^T Q scale with S^ = dS in the input type,
+    all products accumulated in f32. Returns dqkv (B, nW, N, 3C) in the
+    input type and dbias (H, N, N) f32, the sum of dS over batch and
+    windows. The mask gets no gradient."""
+    b, nw, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    dt = qkv.dtype
+    q6 = qkv.reshape(b, nw, n, 3, num_heads, d)
+    sc = torch.tensor(scale, dtype=dt, device=qkv.device)
+    qs = (q6[..., 0, :, :] * sc).float()
+    q, k, v = (q6[..., i, :, :].float() for i in range(3))
+    attn = torch.einsum("bwqhd,bwkhd->bwhqk", qs, k) + bias.float()[None, None]
+    if mask is not None:
+        attn = attn + mask.float()[None, :, None]
+    p = torch.softmax(attn, dim=-1)
+    p_lo = p.to(dt).float()
+    do = dout.reshape(b, nw, n, num_heads, d).float()
+    dv = torch.einsum("bwhqk,bwqhd->bwkhd", p_lo, do)
+    dp = torch.einsum("bwqhd,bwkhd->bwhqk", do, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds_lo = ds.to(dt).float()
+    dq = torch.einsum("bwhqk,bwkhd->bwqhd", ds_lo, k) * scale
+    dk = torch.einsum("bwhqk,bwqhd->bwkhd", ds_lo, q) * scale
+    dqkv = torch.stack([dq, dk, dv], dim=3).reshape(b, nw, n, c3).to(dt)
+    return dqkv, ds.sum((0, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launch_fn():
+    fn = native.load("window_attention_bwd").window_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor], dout: torch.Tensor,
+                         scale: float, num_heads: int):
+    """(dqkv, dbias) of ``window_attention``: the CUDA kernel
+    ``csrc/window_attention_bwd.cu`` on the card, the plain version for a
+    CPU tensor. dbias is reduced from per-window partials in a fixed
+    order, so two launches on the same inputs give the same bits."""
+    native.no_autograd("window_attention_bwd", qkv, bias, mask, dout)
+    if qkv.device.type == "cpu":
+        return window_attention_bwd_plain(qkv, bias, mask, dout, scale, num_heads)
+    _check(qkv, bias, mask, num_heads, dout)
+    b, nw, n, c3 = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((nw, num_heads, n, n), dtype=torch.float32, device=qkv.device)
+    dbias = torch.empty((num_heads, n, n), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = _bwd_launch_fn()(qkv.data_ptr(), bias.data_ptr(),
+                               mask.data_ptr() if mask is not None else None,
+                               dout.data_ptr(), dqkv.data_ptr(), part.data_ptr(),
+                               dbias.data_ptr(), b, nw, n, c3 // 3, num_heads, float(scale),
+                               1 if qkv.dtype == torch.bfloat16 else 0,
+                               torch.cuda.current_stream(qkv.device).cuda_stream)
+    native.check(err, "window_attention_bwd")
+    native.LAUNCHES["window_attention_bwd"] += 1
+    return dqkv, dbias
+
+
+class WindowAttentionQKV(torch.autograd.Function):
+    """Differentiable ``window_attention``: forward K4, backward K7. Saves
+    qkv (and the bias and mask) only: the probabilities are recomputed in
+    the backward. ``apply(qkv, bias, mask, scale, num_heads)``."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, scale, num_heads):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return window_attention(qkv, bias, mask, scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias, mask = ctx.saved_tensors
+        dqkv, dbias = window_attention_bwd(qkv, bias, mask, dout.contiguous(),
+                                           ctx.scale, ctx.num_heads)
+        return dqkv, dbias.to(bias.dtype), None, None, None

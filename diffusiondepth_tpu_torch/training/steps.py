@@ -1,6 +1,11 @@
-"""Eval step factory (port of ``make_eval_step`` in
-``diffusiondepth_tpu/training/steps.py``, without flip-TTA). The train step
-is the next slice."""
+"""Train and eval step factories (port of
+``diffusiondepth_tpu/training/steps.py``, without flip-TTA).
+
+Loss normalisation is the JAX package's: the per-sample masked losses are
+summed over the batch and the sum is divided by the global batch size, so
+with accumulation the summed micro-batch gradients are divided by the
+global batch once, before the single optimizer update.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +14,57 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..metrics.depth_metrics import evaluate_depth_metrics
+
+
+def make_train_step(model, loss_computer, optimizer, accum_steps: int = 1) -> Callable:
+    """Returns ``train_step(batch, generator=None) -> (loss, loss_val,
+    metric_val)``.
+
+    Runs the model in training mode on the device its parameters live on
+    (the batch too): BatchNorm on batch statistics, drop-path and the DDIM
+    draws from ``generator`` (a ``torch.Generator`` on that device), the
+    self-diffusion ``ddim_loss``. ``accum_steps`` > 1 splits the batch
+    into that many micro-batches, runs them one after the other (the
+    BatchNorm running statistics are updated by each in turn) and
+    accumulates their gradients before one optimizer step."""
+
+    def micro(mb: Dict[str, torch.Tensor], generator):
+        out = model(mb, generator=generator)
+        loss_sum, loss_val = loss_computer(mb, out)
+        return loss_sum, loss_val, out["pred"]
+
+    def train_step(batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        batch_size = batch["rgb"].shape[0]
+        if accum_steps > 1:
+            if batch_size % accum_steps:
+                raise ValueError(f"batch {batch_size} is not a multiple of {accum_steps}")
+            m = batch_size // accum_steps
+            loss_sum, loss_val, preds = 0.0, 0.0, []
+            for i in range(accum_steps):
+                mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                l_sum, lval, pred = micro(mb, generator)
+                l_sum.backward()
+                loss_sum = loss_sum + l_sum.detach()
+                loss_val = loss_val + lval.detach()
+                preds.append(pred.detach())
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(batch_size)
+            pred = torch.cat(preds)
+        else:
+            loss_sum, loss_val, pred = micro(batch, generator)
+            (loss_sum / batch_size).backward()
+            loss_sum, loss_val, pred = loss_sum.detach(), loss_val.detach(), pred.detach()
+        optimizer.step()
+        with torch.no_grad():
+            metric_val = evaluate_depth_metrics(batch, {"pred": pred})
+        return loss_sum / batch_size, loss_val / batch_size, metric_val
+
+    return train_step
 
 
 def make_eval_step(model) -> Callable:

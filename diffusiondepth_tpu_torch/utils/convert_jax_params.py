@@ -45,9 +45,10 @@ def _norm(out, prefix, p):
 
 def _bn(out, prefix, p, s):
     _norm(out, prefix, p["BatchNorm_0"]["BatchNorm_0"])
-    st = s["BatchNorm_0"]["BatchNorm_0"]
-    out[prefix + ".running_mean"] = st["mean"]
-    out[prefix + ".running_var"] = st["var"]
+    if s:  # absent for a gradient tree
+        st = s["BatchNorm_0"]["BatchNorm_0"]
+        out[prefix + ".running_mean"] = st["mean"]
+        out[prefix + ".running_var"] = st["var"]
 
 
 def _conv(out, prefix, p, deconv=False):
@@ -101,19 +102,22 @@ def _head(out, pre, p, s):
         m = re.fullmatch(r"conv_lateral_(\d+)", key)
         if m:
             i = m.group(1)
-            _conv_bn(out, f"{pre}conv_lateral.{i}.0", f"{pre}conv_lateral.{i}.1", p[key], s[key])
+            _conv_bn(out, f"{pre}conv_lateral.{i}.0", f"{pre}conv_lateral.{i}.1", p[key],
+                     s.get(key))
         m = re.fullmatch(r"conv_up_(\d+)", key)
         if m:
             i = m.group(1)
-            _conv_bn(out, f"{pre}conv_up.{i}.0", f"{pre}conv_up.{i}.1", p[key], s[key],
+            _conv_bn(out, f"{pre}conv_up.{i}.0", f"{pre}conv_up.{i}.1", p[key], s.get(key),
                      deconv=True)
 
-    dt, dts = p["depth_transform"], s["depth_transform"]
+    dt, dts = p["depth_transform"], s.get("depth_transform", {})
     d = pre + "depth_transform."
-    _conv_bn(out, d + "conv_transform.0.0", d + "conv_transform.0.1", dt["enc1"], dts["enc1"])
-    _conv_bn(out, d + "conv_transform.1.0", d + "conv_transform.1.1", dt["enc2"], dts["enc2"])
+    _conv_bn(out, d + "conv_transform.0.0", d + "conv_transform.0.1", dt["enc1"],
+             dts.get("enc1"))
+    _conv_bn(out, d + "conv_transform.1.0", d + "conv_transform.1.1", dt["enc2"],
+             dts.get("enc2"))
     _conv_bn(out, d + "conv_inv_transform.0", d + "conv_inv_transform.1",
-             dt["dec_up"], dts["dec_up"], deconv=True)
+             dt["dec_up"], dts.get("dec_up"), deconv=True)
     _conv(out, d + "conv_inv_transform.3.0", dt["dec_out"]["Conv_0"])
 
     mp = p["model"]
@@ -126,21 +130,25 @@ def _head(out, pre, p, s):
         _conv(out, m + "upsample_add.convB.conv", mp["fuse_conv_b"])
 
     if "hahineck" in p:
-        hp, hs = p["hahineck"], s["hahineck"]
+        hp, hs = p["hahineck"], s.get("hahineck", {})
         h = pre + "hahineck."
         for key in hp:
             m2 = re.fullmatch(r"(lateral|trans_proj|trans_fusion)_(\d+)", key)
             if m2:
                 name = "lateral_convs" if m2.group(1) == "lateral" else m2.group(1)
                 base = f"{h}{name}.{m2.group(2)}"
-                _conv_bn(out, base + ".conv", base + ".bn", hp[key], hs[key])
+                _conv_bn(out, base + ".conv", base + ".bn", hp[key], hs.get(key))
         for key in ("conv_proj", "conv_fusion"):
-            _conv_bn(out, f"{h}{key}.0.conv", f"{h}{key}.0.bn", hp[key], hs[key])
+            _conv_bn(out, f"{h}{key}.0.conv", f"{h}{key}.0.bn", hp[key], hs.get(key))
 
 
 def jax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[str, torch.Tensor]:
     """Flax ``params`` / ``batch_stats`` of ``Diffusion_DCbase_Model`` (Swin +
-    DDIM head) -> the port's ``state_dict`` (f32 tensors)."""
+    DDIM head) -> the port's ``state_dict`` (f32 tensors). Without
+    ``batch_stats`` the running statistics are left out, so a gradient
+    tree (the ``params`` layout) maps leaf by leaf onto the port's
+    parameter names; ``batch_stats`` after a training step maps onto the
+    running statistics."""
     batch_stats = batch_stats or {}
     out: Dict[str, Any] = {}
     if "depth_backbone" in params:

@@ -25,7 +25,7 @@ def _setup(B=2, H=16, W=21, C=32, seed=0):
                              dtype=jnp.bfloat16)
     lat = jnp.asarray(rng.randn(B, H, W, 16), jnp.bfloat16)
     cond = jnp.asarray(rng.randn(B, H, W, C), jnp.bfloat16)
-    vs = den.init(jax.random.PRNGKey(0), lat, 100, cond)
+    vs = jax.eval_shape(lambda: den.init(jax.random.PRNGKey(0), lat, 100, cond))
     leaves, tree = jax.tree_util.tree_flatten(vs["params"])
     leaves = [jnp.asarray(rng.randn(*l.shape) * 0.3, l.dtype) for l in leaves]
     params = jax.tree_util.tree_unflatten(tree, leaves)
@@ -144,18 +144,19 @@ def test_conv_link_matches_pallas_interpret(link):
 
 
 def test_gn_affine_from_partials_matches():
-    """Partials -> GroupNorm affine in f32 (1e-6 relative)."""
+    """Partials -> GroupNorm affine, inverse std and mean in f32 (1e-6
+    relative)."""
     rng = np.random.RandomState(2)
     ps = rng.randn(2, 5, 2, 64).astype(np.float32)
     ps[:, :, 1] = np.abs(ps[:, :, 1]) * 10 + 5
     scale = (1 + 0.1 * rng.randn(64)).astype(np.float32)
     bias = (0.1 * rng.randn(64)).astype(np.float32)
-    ja, jb, _, _ = jfd._gn_affine_from_partials(jnp.asarray(ps), jnp.asarray(scale),
-                                                jnp.asarray(bias), 4, 300)
-    pa, pb = pfd.gn_affine_from_partials(torch.from_numpy(ps), torch.from_numpy(scale),
-                                         torch.from_numpy(bias), 4, 300)
-    np.testing.assert_allclose(pa.numpy(), np.asarray(ja), rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(pb.numpy(), np.asarray(jb), rtol=1e-6, atol=1e-7)
+    ref = jfd._gn_affine_from_partials(jnp.asarray(ps), jnp.asarray(scale),
+                                       jnp.asarray(bias), 4, 300)
+    out = pfd.gn_affine_from_partials(torch.from_numpy(ps), torch.from_numpy(scale),
+                                      torch.from_numpy(bias), 4, 300)
+    for p, j in zip(out, ref):
+        np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("a_t,a_prev", [(0.63, 0.89), (0.0047, 0.0071), (0.9899, 1.0)])

@@ -1,5 +1,5 @@
-"""The port's CUDA and Triton kernels against their plain versions on the
-card, at small shapes with ragged edges. Marked ``cuda``: they skip where
+"""The port's CUDA and Triton kernels (K1-K7) against their plain versions
+on the card, at small shapes with ragged edges. Marked ``cuda``: they skip where
 there is no CUDA device. On a machine with a card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -78,3 +78,118 @@ def test_window_attention_matches_plain(dev, dtype, masked):
     ref = wa.window_attention_plain(qkv, bias, mask, 32 ** -0.5, heads)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     assert (out.float() - ref.float()).abs().max() <= tol
+
+
+def _rand(g, dev, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def _coefs(g, dev, B, C):
+    c = torch.zeros(B, 8, C, device=dev)
+    c[:, 0] = 1 + 0.2 * torch.randn(B, C, generator=g, device=dev)
+    c[:, 1:4] = 0.2 * torch.randn(B, 3, C, generator=g, device=dev)
+    c[:, 4] = 1 + 0.2 * torch.randn(B, C, generator=g, device=dev)
+    return c
+
+
+def test_sched_step_matches_plain(dev):
+    """K2: x' to f32 rounding order (1e-5 of the largest value), its bf16
+    copy to one bf16 step of that."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    u6 = _rand(g, dev, 2, 5, 7, 16, dtype=torch.bfloat16)
+    x = _rand(g, dev, 2, 5, 7, 16)
+    a, b = 1 + _rand(g, dev, 2, 16, scale=0.1), _rand(g, dev, 2, 16, scale=0.1)
+    sched = torch.tensor([0.3, 0.954, 0.5, 0.866], device=dev)
+    n0 = LAUNCHES["sched_step"]
+    xp, xpb = fd.sched_step(u6, a, b, x, sched)
+    rp, rpb = fd.sched_step_plain(u6, a, b, x, sched)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sched_step"] == n0 + 1 and xpb.dtype == torch.bfloat16
+    assert (xp - rp).abs().max() <= 1e-5 * rp.abs().max()
+    assert (xpb.float() - rpb.float()).abs().max() <= 1e-2 * rp.abs().max()
+
+
+@pytest.mark.parametrize("with_b", [True, False])
+def test_sched_bwd_matches_plain(dev, with_b):
+    """K6: dx to f32 order (1e-5), t6 to one bf16 step (1e-2 of the
+    largest value), the partials summed over blocks to 1e-4."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, W = 2, 9, 37
+    dxp = _rand(g, dev, B, H, W, 16)
+    dxpb = _rand(g, dev, B, H, W, 16, dtype=torch.bfloat16) if with_b else None
+    u6 = _rand(g, dev, B, H, W, 16, dtype=torch.bfloat16)
+    coefs = _coefs(g, dev, B, 16)
+    sched = torch.tensor([0.3, 0.954, 0.5, 0.866], device=dev)
+    dx, t6, ps = fd.sched_bwd(dxp, dxpb, u6, coefs, sched)
+    rdx, rt6, rps = fd.sched_bwd_plain(dxp, dxpb, u6, coefs, sched)
+    torch.cuda.synchronize()
+    assert (dx - rdx).abs().max() <= 1e-5 * rdx.abs().max()
+    assert (t6.float() - rt6.float()).abs().max() <= 1e-2 * rt6.float().abs().max()
+    s, sp = ps.sum(1), rps.sum(1)
+    assert (s - sp).abs().max() <= 1e-4 * sp.abs().max()
+
+
+@pytest.mark.parametrize("cin,cout,gn_next,gn_in,add,w", [
+    (16, 64, True, False, False, 130), (64, 256, True, True, False, 37),
+    (256, 256, False, True, True, 129), (256, 256, False, False, False, 20),
+    (256, 64, True, False, False, 45), (64, 16, True, True, False, 5)])
+def test_conv_link_bwd_matches_plain(dev, cin, cout, gn_next, gn_in, add, w):
+    """K5 at the six kinds of link, ragged widths: t and d(add) within one
+    bf16 step of the largest value (1e-2), dW, dbias and the partials to
+    f32 summation order (1e-3 of the largest value); and two launches give
+    the same bits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    B, H = 2, 6
+    r = _rand(g, dev, B, H, w, cout, dtype=bf)
+    wt = _rand(g, dev, 3, 3, cin, cout, scale=(9 * cin) ** -0.5, dtype=bf)
+    u_in = _rand(g, dev, B, H, w, cin, dtype=bf)
+    kw = {}
+    if gn_next:
+        kw.update(u_next=_rand(g, dev, B, H, w, cout, dtype=bf), coef_next=_coefs(g, dev, B, cout))
+    if gn_in:
+        kw["coef_in"] = _coefs(g, dev, B, cin)
+    if add:
+        kw.update(add=_rand(g, dev, B, H, w, cin, dtype=bf),
+                  te=_rand(g, dev, B, cin, scale=0.1, dtype=bf))
+    n0 = LAUNCHES["conv_link_bwd"]
+    out = fd.conv_link_bwd(r, wt, u_in, **kw)
+    again = fd.conv_link_bwd(r, wt, u_in, **kw)
+    ref = fd.conv_link_bwd_plain(r, wt, u_in, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_link_bwd"] == n0 + 2
+    for a, b_ in zip(out, again):
+        assert (a is None and b_ is None) or torch.equal(a, b_)
+    t, dw, db, ps, da = out
+    rt_, rdw, rdb, rps, rda = ref
+    assert (t.float() - rt_.float()).abs().max() <= 1e-2 * rt_.float().abs().max()
+    assert (dw - rdw).abs().max() <= 1e-3 * rdw.abs().max()
+    assert (db - rdb).abs().max() <= 1e-3 * rdb.abs().max()
+    assert (ps is None) == (not gn_in) and (da is None) == (not add)
+    if gn_in:
+        s, sp = ps.sum(1), rps.sum(1)
+        assert (s - sp).abs().max() <= 1e-3 * sp.abs().max()
+    if add:
+        assert (da.float() - rda.float()).abs().max() <= 1e-2 * rda.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype,masked", [
+    (torch.bfloat16, False), (torch.bfloat16, True), (torch.float32, True)])
+def test_window_attention_bwd_matches_plain(dev, dtype, masked):
+    """K7: dqkv in bf16 to one output step of the largest value (2e-2),
+    in f32 to summation order (1e-4); dbias to 1e-4 of its largest value;
+    two launches give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    nw, heads = 6, 3
+    qkv = _rand(g, dev, 2, nw, 49, 3 * 32 * heads, dtype=dtype)
+    dout = _rand(g, dev, 2, nw, 49, 32 * heads, dtype=dtype)
+    bias = _rand(g, dev, heads, 49, 49, scale=0.1)
+    mask = torch.from_numpy(shifted_window_mask(14, 21, 7, 3)).to(dev) if masked else None
+    dq, db = wa.window_attention_bwd(qkv, bias, mask, dout, 32 ** -0.5, heads)
+    dq2, db2 = wa.window_attention_bwd(qkv, bias, mask, dout, 32 ** -0.5, heads)
+    rq, rb = wa.window_attention_bwd_plain(qkv, bias, mask, dout, 32 ** -0.5, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(db, db2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (dq.float() - rq.float()).abs().max() <= tol * rq.float().abs().max()
+    assert (db - rb).abs().max() <= 1e-4 * rb.abs().max()

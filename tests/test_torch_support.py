@@ -61,8 +61,9 @@ def jax_variables(model, batch, seed=0):
     statistics, as nested dicts of numpy arrays."""
     key = jax.random.PRNGKey(seed)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    vs = model.init({"params": key, "diffusion": key}, jb, train=False,
-                    init_latent=jnp.asarray(init_latent(0, batch)))
+    init = jax.jit(lambda key, jb, lat: model.init({"params": key, "diffusion": key}, jb,
+                                                   train=False, init_latent=lat))
+    vs = init(key, jb, jnp.asarray(init_latent(0, batch)))
     rng = np.random.RandomState(seed + 100)
     to_np = jax.tree_util.tree_map(np.asarray, {k: dict(v) for k, v in vs.items()})
     return {k: _randomize(v, rng) for k, v in to_np.items()}

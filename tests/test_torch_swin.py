@@ -37,7 +37,7 @@ def test_pyramid_matches_flax(h, w):
     params = _randomize(jax.tree_util.tree_map(np.asarray, dict(params)), rng)
     ref = model.apply({"params": params}, jnp.asarray(x))
 
-    port = pswin.swin_micro()
+    port = pswin.swin_micro().eval()  # flax apply without train: no drop-path
     sd = jax_to_state_dict({"depth_backbone": params})
     port.load_state_dict({k[len("depth_backbone."):]: v for k, v in sd.items()}, strict=True)
     with torch.no_grad():
