@@ -20,9 +20,17 @@ Phases, one JSON line each:
              configurations there (run twice: the two results must be
              bit-equal), the window-attention backward (K7) at the four
              Swin-L stages of a 352x906 batch of 4, plain and shifted.
-             Each reports its error against its tolerance, its time, the
-             plain version's time, a library call's time where one exists
-             and the least time the card could take (bound);
+             Opt-in paths: the split q/k/v window attention (K8) at the K4
+             shapes, against its plain version and, bit for bit, against
+             K4 on the same data; the bf16 LayerNorm forward (K9) and
+             backward (K10, run twice: bit-equal) at each (rows, channels)
+             of the Swin-L norms of a 352x906 batch of 4. Each reports its
+             error against its tolerance, its time, the plain version's
+             time, a library call's time where one exists and the least
+             time the card could take (bound). The kernels that may take
+             under 0.1 ms (K2, K3, K6, K9, K10, and the library's LayerNorm)
+             are timed by replaying a CUDA graph of 100 launches, which
+             leaves the host's launch cost out, beside the event-timed loop;
 4. reference - swin_micro under the flagship head on the card against the
              same weights on the CPU (plain versions): backbone pyramid,
              condition map and one denoiser call; then one training step
@@ -35,24 +43,36 @@ Phases, one JSON line each:
              (K3) and 24 (K4) per request; then the device time of one
              request split into backbone, depth encode, HAHI + FPN +
              upsample, the 20-step sampler and the decode;
+   serve-pallas - the same model and batches with use_pallas: 3 requests
+             after one warm-up, exactly 24 K8, 0 K4, 120 K1 and 20 K3
+             launches per request, and a backbone pyramid within 1e-2 of
+             the default route's;
+   leaderboard - the same weights at 50 steps with flip-TTA (batch 8,
+             16 after doubling): 2 requests after one warm-up, exactly
+             300 K1, 50 K3 and 24 K4 launches per request;
 6. train   - the flagship training configuration (352x906 crops, global
              batch 8 as 2 accumulated micro-batches of 4, 1.0*L1+1.0*L2+
              1.0*DDIM, Adam, drop-path 0.1, per-block rematerialisation)
              takes one warm-up and 3 timed steps through make_train_step;
              reports step time, samples/s, peak memory and the loss terms,
              requires finite losses and gradients, non-zero gradients in
-             every part of the model and exact launch counts of all seven
-             kernels; then the device time of one step split into backbone
+             every part of the model and exact launch counts of every
+             kernel; then the device time of one step split into backbone
              forward, head forward, sampler, ddim_loss + decode, backward
-             and optimizer.
+             and optimizer;
+7. layernorm - LayerNorm(dtype=bf16) forward and backward through
+             LayerNormBF16 at the largest Swin-L norm, card against CPU,
+             with exactly one K9 and one K10 launch.
 
-Then a line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+Then a line {"kernels": [...]}, the run's seconds and, last,
+{"ok": true, "device": {...}}.
 Any failed check raises, and the script exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -79,11 +99,33 @@ LINKS = [  # (name, cin, cout, gn+relu in, add+te, stats out)
 ]
 
 
+def swin_stage_grid(h_img, w_img, stage):
+    """(height, width) of a Swin stage's token grid: the patch embedding
+    and each PatchMerging round up."""
+    return -(-h_img // (4 << stage)), -(-w_img // (4 << stage))
+
+
 def swin_stage_windows(h_img, w_img, stage):
     """(padded height, padded width, windows) of a Swin-L stage's 7x7 grid."""
-    hh, ww = -(-h_img // (4 << stage)), -(-w_img // (4 << stage))
+    hh, ww = swin_stage_grid(h_img, w_img, stage)
     h_pad, w_pad = hh + (-hh) % 7, ww + (-ww) % 7
     return h_pad, w_pad, (h_pad // 7) * (w_pad // 7)
+
+
+def swin_norm_shapes(b, h_img, w_img):
+    """{(rows, channels): norms per Swin-L forward}: the patch-embedding
+    norm, two per block and one output norm per stage at the stage's
+    tokens, and each PatchMerging norm at the next stage's tokens and four
+    times the channels."""
+    shapes = {}
+    for stage, (depth, c) in enumerate(zip(SWIN_L["depths"], SWIN_L["dims"])):
+        hh, ww = swin_stage_grid(h_img, w_img, stage)
+        m = b * hh * ww
+        shapes[(m, c)] = shapes.get((m, c), 0) + 2 * depth + 1 + (stage == 0)
+        if stage + 1 < len(SWIN_L["dims"]):
+            hn, wn = swin_stage_grid(h_img, w_img, stage + 1)
+            shapes[(b * hn * wn, 4 * c)] = 1
+    return shapes
 
 
 def emit(obj) -> None:
@@ -117,16 +159,21 @@ def main() -> int:
     from diffusiondepth_tpu_torch.diffusion.ddim import DDIMSchedule
     from diffusiondepth_tpu_torch.losses import get_loss_names
     from diffusiondepth_tpu_torch.models.backbones.swin import shifted_window_mask
+    from diffusiondepth_tpu_torch.models.common import LayerNorm
     from diffusiondepth_tpu_torch.ops import native
+    from diffusiondepth_tpu_torch.ops.layernorm import (
+        layernorm_bwd, layernorm_bwd_plain, layernorm_fwd, layernorm_fwd_plain,
+    )
     from diffusiondepth_tpu_torch.ops.fused_denoiser import (
         _link_input_plain, conv_link, conv_link_bwd, conv_link_bwd_plain, conv_link_plain,
         ddim_step, ddim_step_plain, sched_bwd, sched_bwd_plain, sched_step, sched_step_plain,
     )
     from diffusiondepth_tpu_torch.ops.window_attention import (
         window_attention, window_attention_bwd, window_attention_bwd_plain,
-        window_attention_plain,
+        window_attention_plain, window_attention_split, window_attention_split_plain,
     )
 
+    t_start = time.perf_counter()
     # plain versions and references compute f32 in full f32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -147,6 +194,37 @@ def main() -> int:
         end.record()
         sync()
         return start.elapsed_time(end) / iters
+
+    def graph_ms(fn, n=100, reps=3):
+        """Time per call of fn replayed from a CUDA graph of n calls: the
+        host's launch cost (Python, Triton's launcher) is left out."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        sync()
+        del graph
+        return start.elapsed_time(end) / (reps * n)
+
+    def small_ms(fn, iters):
+        """(ms, event-timed ms) of a call that may take under 0.1 ms: the
+        CUDA-graph replay is its time; the event-timed loop of launches
+        from Python may read the host's launch cost instead."""
+        return graph_ms(fn), cuda_ms(fn, iters)
 
     # ---- 1. environment
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -257,7 +335,7 @@ def main() -> int:
         check(math.isfinite(err) and err <= tol, f"ddim_step {i}: {err} > {tol}")
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
     s = sched_rows[STEPS // 2]
-    k3["ms"] = cuda_ms(lambda: ddim_step(u6, a3, b3, xl, s), iters * 5)
+    k3["ms"], k3["event_ms"] = small_ms(lambda: ddim_step(u6, a3, b3, xl, s), iters * 5)
     k3["plain_ms"] = cuda_ms(lambda: ddim_step_plain(u6, a3, b3, xl, s), iters)
     n = u6.numel()
     k3_bytes = n * (2 + 4 + 4) + 2 * B * 16 * 4 + 16
@@ -362,12 +440,12 @@ def main() -> int:
         k6["max_abs_err"] = max(k6["max_abs_err"], t_err)
     s = sched_rows[STEPS // 2]
     n = u6.numel()
-    k2["ms"] = cuda_ms(lambda: sched_step(u6, a3, b3, xl, s), iters * 5)
+    k2["ms"], k2["event_ms"] = small_ms(lambda: sched_step(u6, a3, b3, xl, s), iters * 5)
     k2["plain_ms"] = cuda_ms(lambda: sched_step_plain(u6, a3, b3, xl, s), iters)
     k2["bound_ms"], k2["bound_by"] = bound(n * (2 + 4 + 4 + 2) + 2 * tb * 16 * 4 + 16,
                                            12.0 * n, F32_FLOPS)
     k2["library_ms"] = None
-    k6["ms"] = cuda_ms(lambda: sched_bwd(dxp, dxpb, u6, coefs, s), iters * 5)
+    k6["ms"], k6["event_ms"] = small_ms(lambda: sched_bwd(dxp, dxpb, u6, coefs, s), iters * 5)
     k6["plain_ms"] = cuda_ms(lambda: sched_bwd_plain(dxp, dxpb, u6, coefs, s), iters)
     n_ps = ps_k.numel()
     k6["bound_ms"], k6["bound_by"] = bound(n * (4 + 2 + 2 + 4 + 2) + coefs.numel() * 4 + 16
@@ -523,8 +601,132 @@ def main() -> int:
     summary["window_attention_bwd"] = k7
     sync()
 
+    # ---- 3h. K8 split q/k/v window attention at the K4 shapes (bs8 352x1216)
+    k8 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, k4_ms=0.0, max_abs_err=0.0)
+    for stage, (depth, heads, c) in enumerate(zip(SWIN_L["depths"], SWIN_L["heads"],
+                                                  SWIN_L["dims"])):
+        h_pad, w_pad, nw = swin_stage_windows(H_IMG, W_IMG, stage)
+        d = c // heads
+        qkv = randn(B, nw, 49, 3 * c, dtype=bf)
+        # the Swin block's permute to (B, nW, H, N, D), one tensor each
+        q, k, v = (t.permute(0, 1, 3, 2, 4).contiguous()
+                   for t in qkv.view(B, nw, 49, 3, heads, d).unbind(3))
+        bias = randn(heads, 49, 49, scale=0.1)
+        scale = d ** -0.5
+        for shifted in (False, True):
+            mask = (torch.from_numpy(shifted_window_mask(h_pad, w_pad, 7, 3)).to(dev)
+                    if shifted else None)
+            out_k = window_attention_split(q, k, v, bias, mask, scale)
+            out_p = window_attention_split_plain(q, k, v, bias, mask, scale)
+            out_4 = window_attention(qkv, bias, mask, scale, heads)
+            sync()
+            err = (out_k.float() - out_p.float()).abs().max().item()
+            # as K4: a probability or the output may round to the
+            # neighbouring bf16 value; and K8 sums in K4's order
+            tol = 2e-2
+            same_as_k4 = torch.equal(out_k.permute(0, 1, 3, 2, 4).reshape(out_4.shape), out_4)
+            check(math.isfinite(err) and err <= tol and same_as_k4,
+                  f"window_attention_split s{stage}: {err} same_as_k4={same_as_k4}")
+            ms = cuda_ms(lambda: window_attention_split(q, k, v, bias, mask, scale), iters)
+            k4_ms = cuda_ms(lambda: window_attention(qkv, bias, mask, scale, heads), iters)
+            plain_ms = cuda_ms(lambda: window_attention_split_plain(q, k, v, bias, mask, scale),
+                               max(1, iters // 3), 1)
+            ql, kl, vl = (t.view(B * nw, heads, 49, d) for t in (q, k, v))
+            if mask is None:
+                amask = bias[None].to(bf)
+            else:
+                amask = (bias[None] + mask[:, None]).to(bf)
+                amask = amask.expand(B, nw, heads, 49, 49).reshape(B * nw, heads, 49, 49)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=amask, scale=scale), iters)
+            nbytes = 4 * q.numel() * 2 + bias.numel() * 4 + (mask.numel() * 4 if shifted else 0)
+            flops = 4.0 * B * nw * heads * 49 * 49 * d
+            bms, by = bound(nbytes, flops, BF16_FLOPS)
+            emit({"phase": "kernel", "kernel": "window_attention_split", "stage": stage,
+                  "shifted": shifted, "shape": list(q.shape), "max_abs_err": err, "tol": tol,
+                  "same_bits_as_k4": same_as_k4, "ms": ms, "k4_ms": k4_ms,
+                  "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                  "gbps": nbytes / ms / 1e6})
+            reps = depth // 2  # half the blocks of a stage are shifted
+            for kk, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                            ("bound_ms", bms), ("k4_ms", k4_ms)):
+                k8[kk] += reps * val
+            k8["max_abs_err"] = max(k8["max_abs_err"], err)
+            del out_k, out_p, out_4, amask
+        del qkv, q, k, v, ql, kl, vl
+    k8["bound_by"] = "bytes"
+    summary["window_attention_split"] = k8
+    sync()
+
+    # ---- 3i. K9/K10 bf16 LayerNorm at the Swin-L norms of a 352x906 batch of 4
+    norm_shapes = swin_norm_shapes(B_T // ACCUM, H_T, W_T)
+    ln_shape = max(norm_shapes, key=lambda mc: mc[0] * mc[1])  # the layernorm path's
+    ln_pass = {n: dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                       library_event_ms=0.0, bound_ms=0.0)
+               for n in ("layernorm_fwd", "layernorm_bwd")}
+    for (m, c), count in sorted(norm_shapes.items()):
+        x2 = (randn(m, c, scale=2.0) + 0.5).to(bf)
+        dy2 = randn(m, c, dtype=bf)
+        lw, lb = 1.0 + randn(c, scale=0.2), randn(c, scale=0.1)
+        y_k, mean_k, inv_k = layernorm_fwd(x2, lw, lb, 1e-5)
+        y_p, mean_p, inv_p = layernorm_fwd_plain(x2, lw, lb, 1e-5)
+        dx_k, ds_k, db_k = layernorm_bwd(x2, dy2, mean_k, inv_k, lw)
+        dx_2, ds_2, db_2 = layernorm_bwd(x2, dy2, mean_k, inv_k, lw)
+        dx_p, ds_p, db_p = layernorm_bwd_plain(x2, dy2, mean_k, inv_k, lw)
+        sync()
+        bitwise = torch.equal(dx_k, dx_2) and torch.equal(ds_k, ds_2) and torch.equal(db_k, db_2)
+        errs = {
+            # bf16 y and dx: one bf16 step of the largest value
+            "y": ((y_k.float() - y_p.float()).abs().max() / y_p.float().abs().max()).item(),
+            "dx": ((dx_k.float() - dx_p.float()).abs().max() / dx_p.float().abs().max()).item(),
+            # f32 statistics; inv through Triton's rsqrt (1e-4 relative)
+            "mean": ((mean_k - mean_p).abs() / (1.0 + mean_p.abs())).max().item(),
+            "inv": ((inv_k - inv_p).abs() / inv_p.abs()).max().item(),
+            # f32 sums over all rows in another order
+            "dscale": ((ds_k - ds_p).abs().max() / ds_p.abs().max()).item(),
+            "dbias": ((db_k - db_p).abs().max() / db_p.abs().max()).item(),
+        }
+        tols = {"y": 1e-2, "dx": 1e-2, "mean": 1e-5, "inv": 1e-4, "dscale": 1e-3, "dbias": 1e-3}
+        check(bitwise and all(math.isfinite(errs[e]) and errs[e] <= tols[e] for e in errs),
+              f"layernorm ({m}, {c}): bitwise={bitwise} {errs}")
+        # the library's LayerNorm on bf16 parameters (timed only)
+        lwb, lbb = lw.to(bf), lb.to(bf)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x2, [c], lwb, lbb, 1e-5)
+        n_el = m * c
+        recs = {
+            "layernorm_fwd": (lambda: layernorm_fwd(x2, lw, lb, 1e-5),
+                              lambda: layernorm_fwd_plain(x2, lw, lb, 1e-5),
+                              lambda: F.layer_norm(x2, (c,), lwb, lbb, 1e-5),
+                              n_el * 4 + m * 8 + c * 8, 8.0 * n_el),
+            "layernorm_bwd": (lambda: layernorm_bwd(x2, dy2, mean_k, inv_k, lw),
+                              lambda: layernorm_bwd_plain(x2, dy2, mean_k, inv_k, lw),
+                              lambda: torch.ops.aten.native_layer_norm_backward(
+                                  dy2, x2, [c], lmean, lrstd, lwb, lbb, [True, True, True]),
+                              n_el * 6 + m * 8 + c * 12, 12.0 * n_el),
+        }
+        for name_, (fn, plain_fn, lib_fn, nbytes, flops) in recs.items():
+            ms, ev = small_ms(fn, iters * 2)
+            plain_ms = cuda_ms(plain_fn, max(1, iters // 3), 1)
+            lib_ms, lib_ev = small_ms(lib_fn, iters * 2)
+            bms, by = bound(nbytes, flops, F32_FLOPS)
+            rec = dict(ms=ms, event_ms=ev, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_event_ms=lib_ev, bound_ms=bms, bound_by=by)
+            emit({"phase": "kernel", "kernel": name_, "shape": [m, c], "per_swin_l_pass": count,
+                  "errors": errs, "tols": tols, "bitwise_repeatable": bitwise, **rec})
+            for kk in ln_pass[name_]:
+                ln_pass[name_][kk] += count * rec[kk]
+            if (m, c) == ln_shape:
+                got, ref = (y_k, y_p) if name_ == "layernorm_fwd" else (dx_k, dx_p)
+                summary[name_] = dict(rec, max_abs_err=(got.float() - ref.float()).abs().max()
+                                      .item())
+        del x2, dy2, y_k, y_p, dx_k, dx_2, dx_p, lmean, lrstd
+    emit({"phase": "kernel", "kernel": "layernorm", "what": "sum over the 56 norms of one "
+          "Swin-L forward (backward) at 352x906, batch 4", "shapes": {
+              f"{m}x{c}": n for (m, c), n in sorted(norm_shapes.items())}, **ln_pass})
+    sync()
+
     launches = {k: 0 for k in port.LAUNCHES}
-    train_launches = dict(launches)
+    path_launches = {p: dict(launches) for p in ("serve", "serve-pallas", "train", "layernorm")}
     if not args.quick:
         # ---- 4. a small input against the CPU plain versions
         def micro_cfg(opt):
@@ -672,6 +874,7 @@ def main() -> int:
         expect.update({"conv_link": 6 * STEPS * n_req, "ddim_step": STEPS * n_req,
                        "window_attention": sum(SWIN_L["depths"]) * n_req})
         check(launches == expect, f"launch counts {launches} != {expect}")
+        path_launches["serve"] = launches
         # where the time of one request goes, device time by part
         batch = batches[0]
         head = model.depth_head
@@ -706,6 +909,86 @@ def main() -> int:
               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
               "metric_names": ["RMSE", "MAE", "iRMSE", "iMAE", "REL", "D^1", "D^2", "D^3"],
               "metric_rows": rows, "launches": launches, "expected_launches": expect})
+        sync()
+
+        # ---- 5b. the same model and batches with use_pallas: K8 in every block
+        state = model.state_dict()
+        pcfg = dataclasses.replace(cfg, use_pallas=True)
+        pmodel = port.build_model(pcfg)
+        pmodel.load_state_dict(state)
+        pstep = port.make_eval_step(pmodel)
+        t0 = time.perf_counter()
+        pstep(warm, generator=dgen)
+        sync()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        port.reset_launch_counts()
+        plat_ms = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            pred, met, _ = pstep(batch, generator=dgen)
+            sync()
+            plat_ms.append(1e3 * (time.perf_counter() - t0))
+            check(tuple(pred.shape) == (B, H_IMG, W_IMG, 1) and bool(torch.isfinite(pred).all())
+                  and bool(torch.isfinite(met).all()), "serve-pallas: pred or metrics not finite")
+        p_launches = dict(port.LAUNCHES)
+        p_expect = {k: 0 for k in port.LAUNCHES}
+        p_expect.update({"conv_link": 6 * STEPS * n_req, "ddim_step": STEPS * n_req,
+                         "window_attention_split": sum(SWIN_L["depths"]) * n_req})
+        check(p_launches == p_expect, f"serve-pallas launch counts {p_launches} != {p_expect}")
+        path_launches["serve-pallas"] = p_launches
+        p_peak = torch.cuda.max_memory_allocated() / 1e9
+        # the same math on both routes: each pyramid level of the default
+        # model within 1e-2 of the level's largest value (pred is not
+        # compared: random bf16 weights make it chaotic)
+        with torch.no_grad():
+            fp_d = model.depth_backbone(batches[0]["rgb"])
+            fp_p = pmodel.depth_backbone(batches[0]["rgb"])
+        pyr = [((a.float() - b_.float()).abs().max() / b_.float().abs().max()).item()
+               for a, b_ in zip(fp_p, fp_d)]
+        check(all(math.isfinite(e) and e <= 1e-2 for e in pyr), f"serve-pallas pyramid: {pyr}")
+        emit({"phase": "serve-pallas", "config": "serve config with use_pallas",
+              "warmup_s": warm_s, "latency_ms": plat_ms,
+              "frames_per_s": B * n_req / (sum(plat_ms) / 1e3), "max_memory_allocated_gb": p_peak,
+              "pyramid_rel_diff_vs_default": pyr, "launches": p_launches,
+              "expected_launches": p_expect})
+        del pmodel, pstep, fp_d, fp_p
+        sync()
+
+        # ---- 5c. the leaderboard protocol: 50 steps, flip-TTA, the same weights
+        lb_steps = 50
+        lcfg = dataclasses.replace(cfg, inference_steps=lb_steps, tta_flip=True)
+        lmodel = port.build_model(lcfg)
+        lmodel.load_state_dict(state)
+        lstep = port.make_eval_step(lmodel, tta_flip=lcfg.tta_flip)
+        t0 = time.perf_counter()
+        lstep(warm, generator=dgen)
+        sync()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        l_ms, l_rows = [], []
+        l_expect = {k: 0 for k in port.LAUNCHES}
+        l_expect.update({"conv_link": 6 * lb_steps, "ddim_step": lb_steps,
+                         "window_attention": sum(SWIN_L["depths"])})
+        for batch in batches[:2]:
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            pred, met, _ = lstep(batch, generator=dgen)
+            sync()
+            l_ms.append(1e3 * (time.perf_counter() - t0))
+            l_launches = dict(port.LAUNCHES)
+            check(l_launches == l_expect, f"leaderboard launch counts {l_launches} != {l_expect}")
+            check(tuple(pred.shape) == (B, H_IMG, W_IMG, 1) and bool(torch.isfinite(pred).all())
+                  and bool(torch.isfinite(met).all()), "leaderboard: pred or metrics not finite")
+            l_rows.append(met[0].tolist())
+        emit({"phase": "leaderboard", "config": "serve config, 50 steps, flip-TTA",
+              "batch": B, "batch_after_flip": 2 * B, "image": [H_IMG, W_IMG], "steps": lb_steps,
+              "warmup_s": warm_s, "latency_ms": l_ms,
+              "frames_per_s": B * len(l_ms) / (sum(l_ms) / 1e3),
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "metric_rows": l_rows, "launches_per_request": l_launches,
+              "expected_launches": l_expect})
+        del lmodel, lstep, state, model, step, batches, warm
         sync()
 
         # ---- 6. train the flagship configuration
@@ -746,6 +1029,7 @@ def main() -> int:
                     "window_attention": ACCUM * 2 * n_blk, "sched_step": ACCUM * STEPS,
                     "conv_link_bwd": ACCUM * 6 * (STEPS + 1), "sched_bwd": ACCUM * STEPS,
                     "window_attention_bwd": ACCUM * n_blk}
+        t_expect.update({k: 0 for k in port.LAUNCHES if k not in t_expect})
         step_ms, terms = [], []
         for batch in batches:
             port.reset_launch_counts()
@@ -785,7 +1069,7 @@ def main() -> int:
               "max_memory_allocated_gb": peak_gb, "loss_names": get_loss_names(tcfg),
               "loss_rows": terms, "params_with_grad": n_grads, "grad_abs_sum": gsum,
               "launches_per_step": t_launches, "expected_launches": t_expect})
-        train_launches = t_launches
+        path_launches["train"] = t_launches
 
         # where the time of one training step goes, device time by part
         tparts = {k: 0.0 for k in ("backbone_fwd_ms", "head_fwd_ms", "sampler_ms",
@@ -836,12 +1120,53 @@ def main() -> int:
         del model, optimizer, step, batches, batch
         sync()
 
+        # ---- 7. LayerNorm(dtype=bf16) through LayerNormBF16, card vs CPU
+        m, c = ln_shape
+        gen_cpu = torch.Generator().manual_seed(4)
+        mods = [LayerNorm(c, dtype=bf) for _ in range(2)]
+        with torch.no_grad():
+            mods[0].weight.copy_(1.0 + 0.2 * torch.randn(c, generator=gen_cpu))
+            mods[0].bias.copy_(0.1 * torch.randn(c, generator=gen_cpu))
+        mods[1].load_state_dict(mods[0].state_dict())
+        mods[0].to(dev)
+        x_cpu = (2.0 * torch.randn(m, c, generator=gen_cpu) + 0.5).to(bf)
+        dy_cpu = torch.randn(m, c, generator=gen_cpu).to(bf)
+        res = []
+        for mod, d in zip(mods, (dev, torch.device("cpu"))):
+            xg = x_cpu.to(d).requires_grad_()
+            if d.type == "cuda":
+                port.reset_launch_counts()
+            y = mod(xg)
+            y.backward(dy_cpu.to(d))
+            if d.type == "cuda":
+                sync()
+                ln_launches = dict(port.LAUNCHES)
+            res.append([t.float().cpu() for t in (y.detach(), xg.grad, mod.weight.grad,
+                                                   mod.bias.grad)])
+        ln_expect = {k: 0 for k in port.LAUNCHES}
+        ln_expect.update({"layernorm_fwd": 1, "layernorm_bwd": 1})
+        check(ln_launches == ln_expect, f"layernorm launch counts {ln_launches} != {ln_expect}")
+        path_launches["layernorm"] = ln_launches
+        # y and dx in bf16: one bf16 step; dweight, dbias: f32 sums over
+        # all rows in another order
+        ln_tol = {"y": 1e-2, "dx": 1e-2, "dweight": 1e-3, "dbias": 1e-3}
+        ln_err = {k: ((a - b_).abs().max() / b_.abs().max()).item()
+                  for k, a, b_ in zip(ln_tol, *res)}
+        check(all(math.isfinite(ln_err[k]) and ln_err[k] <= ln_tol[k] for k in ln_tol),
+              f"layernorm module: {ln_err}")
+        emit({"phase": "layernorm", "what": f"LayerNorm({c}, dtype=bf16) forward + backward "
+              f"on ({m}, {c}), card vs CPU plain versions", "rel_err": ln_err, "tol": ln_tol,
+              "launches": ln_launches})
+        del mods, res
+        sync()
+
     # (route, source, TPU kernel, the path whose run counts its launches:
     # the path at whose shapes the kernel phase timed it). K1 and K4 run on
-    # both paths; the train line holds their training counts
+    # several paths; the line holds their serve counts
     csrc = "diffusiondepth_tpu_torch/csrc/"
     fd_py = "diffusiondepth_tpu/ops/fused_denoiser.py"
     wa_py = "diffusiondepth_tpu/ops/window_attention.py"
+    ln_py = "diffusiondepth_tpu/ops/layernorm.py"
     sources = {"conv_link": ("cuda", csrc + "conv_link.cu", fd_py + ":63", "serve"),
                "ddim_step": ("triton", csrc + "ddim_step.py", fd_py + ":1583", "serve"),
                "window_attention": ("cuda", csrc + "window_attention.cu", wa_py + ":294", "serve"),
@@ -849,14 +1174,20 @@ def main() -> int:
                "conv_link_bwd": ("cuda", csrc + "conv_link_bwd.cu", fd_py + ":732", "train"),
                "sched_bwd": ("triton", csrc + "sched_bwd.py", fd_py + ":1293", "train"),
                "window_attention_bwd": ("cuda", csrc + "window_attention_bwd.cu",
-                                        wa_py + ":497", "train")}
+                                        wa_py + ":497", "train"),
+               "window_attention_split": ("cuda", csrc + "window_attention_split.cu",
+                                          wa_py + ":106", "serve-pallas"),
+               "layernorm_fwd": ("triton", csrc + "layernorm.py", ln_py + ":52", "layernorm"),
+               "layernorm_bwd": ("triton", csrc + "layernorm.py", ln_py + ":67", "layernorm")}
     emit({"kernels": [
         {"name": k, "route": src[0], "source": src[1], "replaces": src[2], "path": src[3],
-         "launches": (train_launches if src[3] == "train" else launches)[k],
+         "launches": path_launches[src[3]][k],
          "max_abs_err": summary[k]["max_abs_err"], "ms": summary[k]["ms"],
          "plain_ms": summary[k]["plain_ms"], "bound_ms": summary[k]["bound_ms"],
-         "bound_by": summary[k]["bound_by"], "library_ms": summary[k]["library_ms"]}
+         "bound_by": summary[k]["bound_by"], "library_ms": summary[k]["library_ms"],
+         **({"event_ms": summary[k]["event_ms"]} if "event_ms" in summary[k] else {})}
         for k, src in sources.items()]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -54,6 +54,14 @@ class Config:
     accum_steps: int = 1
     # comma-separated pyramid channels overriding the head's spec
     head_in_channels: Optional[str] = None
+    tta_flip: bool = False  # flip-ensemble TTA (leaderboard protocol)
+    # Swin window attention: use_pallas runs the split q/k/v kernel (K8) at
+    # eval and the einsum path in training; fused_window_attention=False
+    # takes the einsum path everywhere; otherwise WindowAttentionQKV (K4/K7)
+    use_pallas: bool = False
+    fused_window_attention: bool = True
+    # rematerialise each Swin block in the training backward
+    remat_backbone: bool = True
 
     def finalize(self) -> "Config":
         if self.dtype is None:

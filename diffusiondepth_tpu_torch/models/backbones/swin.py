@@ -4,12 +4,20 @@
 Parameter names follow the reference's mmcv Swin
 (``patch_embed.projection``, ``stages.{i}.blocks.{j}.attn.w_msa.qkv``,
 ``...ffn.layers.0.0``, ``stages.{i}.downsample.reduction``, ``norm{i}``), so
-a reference state dict loads as it is. Window attention runs through
-``ops.window_attention.WindowAttentionQKV`` (kernel K4 forward, K7
-backward on the card) straight from the qkv Linear output.
+a reference state dict loads as it is. Window attention takes one of three
+routes, as the JAX ``WindowMSA`` does (the card standing where JAX tests
+for a TPU):
+
+* by default, ``ops.window_attention.WindowAttentionQKV`` (kernel K4
+  forward, K7 backward on the card) straight from the qkv Linear output;
+* ``use_pallas`` at eval, ``window_attention_split`` (kernel K8) on q, k, v
+  permuted to (B, nW, H, N, D);
+* ``use_pallas`` in training, or ``fused_qkv_attention=False``, the einsum
+  path in plain PyTorch, with the JAX path's rounding points (logits in the
+  compute type, softmax in f32).
 
 Training mode adds drop-path (rate ``linspace(0, drop_path_rate, depth)``
-over the blocks) and per-block rematerialisation with
+over the blocks) and, with ``remat``, per-block rematerialisation with
 ``torch.utils.checkpoint``. The checkpoint restores the global RNG, not an
 explicit ``torch.Generator``, so each block's drop-path masks are drawn
 before the checkpointed call and passed in: the recompute uses the same
@@ -32,7 +40,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ...ops.window_attention import WindowAttentionQKV
+from ...ops.window_attention import (
+    WindowAttentionQKV, window_attention_einsum, window_attention_split,
+)
 from ...registry import BACKBONES
 from ..common import conv2d_nhwc, drop_path, layer_norm, linear
 
@@ -81,13 +91,16 @@ def window_reverse(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor
 
 class WindowMSA(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int, window_size: int = 7,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_pallas: bool = False,
+                 fused_qkv_attention: bool = True):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.window_size = window_size
         self.scale = (embed_dims // num_heads) ** -0.5
         self.dtype = dtype
+        self.use_pallas = use_pallas
+        self.fused_qkv_attention = fused_qkv_attention
         self.qkv = nn.Linear(embed_dims, 3 * embed_dims)
         self.proj = nn.Linear(embed_dims, embed_dims)
         self.relative_position_bias_table = nn.Parameter(
@@ -100,18 +113,30 @@ class WindowMSA(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """x (B, nW, N, C) window-major; mask (nW, N, N) f32 or None."""
-        n = x.shape[2]
+        b, nw, n, c = x.shape
         qkv = linear(x, self.qkv, self.dtype)
         bias = self.relative_position_bias_table[self.relative_position_index]
         bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
-        out = WindowAttentionQKV.apply(qkv.contiguous(), bias, mask, self.scale, self.num_heads)
+        if self.fused_qkv_attention and not self.use_pallas:
+            out = WindowAttentionQKV.apply(qkv.contiguous(), bias, mask, self.scale,
+                                           self.num_heads)
+            return linear(out, self.proj, self.dtype)
+        if self.use_pallas and not self.training:
+            q, k, v = (t.permute(0, 1, 3, 2, 4).contiguous() for t in
+                       qkv.reshape(b, nw, n, 3, self.num_heads, c // self.num_heads).unbind(3))
+            out = window_attention_split(q, k, v, bias, mask, self.scale)
+            out = out.permute(0, 1, 3, 2, 4).reshape(b, nw, n, c)
+        else:
+            out = window_attention_einsum(qkv, bias, mask, self.scale, self.num_heads)
         return linear(out, self.proj, self.dtype)
 
 
 class ShiftWindowMSA(nn.Module):
-    def __init__(self, embed_dims, num_heads, window_size, dtype):
+    def __init__(self, embed_dims, num_heads, window_size, dtype, use_pallas,
+                 fused_qkv_attention):
         super().__init__()
-        self.w_msa = WindowMSA(embed_dims, num_heads, window_size, dtype)
+        self.w_msa = WindowMSA(embed_dims, num_heads, window_size, dtype, use_pallas,
+                               fused_qkv_attention)
 
 
 class FFN(nn.Module):
@@ -126,14 +151,16 @@ class FFN(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int, feedforward_channels: int,
                  window_size: int = 7, shift: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_pallas: bool = False,
+                 fused_qkv_attention: bool = True):
         super().__init__()
         self.drop_path_rate = 0.0  # training only; SwinTransformer sets it
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(embed_dims, eps=1e-5)
-        self.attn = ShiftWindowMSA(embed_dims, num_heads, window_size, dtype)
+        self.attn = ShiftWindowMSA(embed_dims, num_heads, window_size, dtype, use_pallas,
+                                   fused_qkv_attention)
         self.norm2 = nn.LayerNorm(embed_dims, eps=1e-5)
         self.ffn = FFN(embed_dims, feedforward_channels)
         self._masks: Dict[Tuple, torch.Tensor] = {}
@@ -230,21 +257,27 @@ class SwinTransformer(nn.Module):
     """Four-stage Swin pyramid returning NHWC maps. Eval: no drop-path, no
     activation checkpointing. Training: drop-path at
     ``linspace(0, drop_path_rate, total depth)`` (masks from the caller's
-    generator) and, under grad, each block rematerialised in the backward.
-    Dropout rates are 0, as in the shipped configs."""
+    generator) and, with ``remat`` and under grad, each block
+    rematerialised in the backward. Dropout rates are 0, as in the shipped
+    configs. ``use_pallas`` and ``fused_qkv_attention`` choose the window
+    attention (module docstring)."""
 
     def __init__(self, embed_dims: int = 96, patch_size: int = 4, window_size: int = 7,
                  mlp_ratio: int = 4, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), drop_path_rate: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 remat: bool = True, use_pallas: bool = False,
+                 fused_qkv_attention: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.patch_embed = PatchEmbed(embed_dims, patch_size, dtype)
         stages = []
         dims = embed_dims
         for i, (depth, heads) in enumerate(zip(depths, num_heads)):
             blocks = [SwinBlock(dims, heads, mlp_ratio * dims, window_size,
-                                shift=(j % 2 == 1), dtype=dtype) for j in range(depth)]
+                                shift=(j % 2 == 1), dtype=dtype, use_pallas=use_pallas,
+                                fused_qkv_attention=fused_qkv_attention)
+                      for j in range(depth)]
             down = PatchMerging(dims, 2 * dims, dtype) if i < len(depths) - 1 else None
             stages.append(SwinStage(blocks, down))
             self.add_module(f"norm{i}", nn.LayerNorm(dims, eps=1e-5))
@@ -262,7 +295,7 @@ class SwinTransformer(nn.Module):
         if blk.drop_path_rate > 0:
             keep = (torch.rand((2, x.shape[0]), generator=generator, device=x.device)
                     < 1.0 - blk.drop_path_rate)
-        if torch.is_grad_enabled():
+        if self.remat and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(blk, x, keep, use_reentrant=False)
         return blk(x, keep)
 
@@ -278,16 +311,32 @@ class SwinTransformer(nn.Module):
         return outs
 
 
-@BACKBONES.register(name="swin_large_naive_l4w722422k")
-def swin_large_naive_l4w722422k(dtype=None):
+def _swin_large(dtype=None, use_pallas=False, remat=True, fused_qkv_attention=True):
     """Swin-L: embed 192, depths (2, 2, 18, 2), heads (6, 12, 24, 48), window 7."""
-    return SwinTransformer(embed_dims=192, depths=(2, 2, 18, 2),
-                           num_heads=(6, 12, 24, 48), dtype=dtype)
+    return SwinTransformer(embed_dims=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48),
+                           remat=remat, use_pallas=use_pallas,
+                           fused_qkv_attention=fused_qkv_attention, dtype=dtype)
+
+
+# the reference's three names of one architecture (its pretrained weights
+# differ, not its layers)
+for _name in ("swin_large_naive_l4w722422k", "swin_large_naive_nopretrain",
+              "swin_large_naive_swinlargepreatrain_add"):
+    BACKBONES.register(_swin_large, name=_name)
+
+
+@BACKBONES.register(name="swin_tiny")
+def swin_tiny(dtype=None, use_pallas=False, remat=True, fused_qkv_attention=True):
+    """Swin-T: embed 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24)."""
+    return SwinTransformer(embed_dims=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
+                           remat=remat, use_pallas=use_pallas,
+                           fused_qkv_attention=fused_qkv_attention, dtype=dtype)
 
 
 @BACKBONES.register(name="swin_micro")
-def swin_micro(dtype=None):
+def swin_micro(dtype=None, use_pallas=False, remat=True, fused_qkv_attention=True):
     """Every layer type of the flagship backbone at test size; pyramid
     channels (32, 64, 128, 256)."""
-    return SwinTransformer(embed_dims=32, depths=(1, 2, 1, 1),
-                           num_heads=(1, 2, 4, 8), dtype=dtype)
+    return SwinTransformer(embed_dims=32, depths=(1, 2, 1, 1), num_heads=(1, 2, 4, 8),
+                           remat=remat, use_pallas=use_pallas,
+                           fused_qkv_attention=fused_qkv_attention, dtype=dtype)

@@ -7,7 +7,8 @@ product and adds the bias in bf16, as flax modules do under the bf16
 policy; normalisations compute their statistics in f32.
 
 ``BatchNorm2d`` uses its running statistics in eval mode and the batch
-statistics in training mode.
+statistics in training mode. ``LayerNorm`` is the JAX package's opt-in
+LayerNorm module, whose bf16 branch runs the kernels K9/K10.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.layernorm import LayerNormBF16
 
 
 def _dt(dtype: Optional[torch.dtype], *ts: torch.Tensor) -> torch.dtype:
@@ -178,3 +181,30 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: Optional[torch.dtype]) 
     """Last-dim LayerNorm in f32, output in the compute dtype."""
     y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
     return y.to(_dt(dtype, x))
+
+
+class LayerNorm(nn.Module):
+    """Last-dim LayerNorm with an affine (port of the JAX package's
+    ``models/common.py::LayerNorm``), parameters ``weight``/``bias`` (JAX's
+    ``scale``/``bias``). ``dtype`` not bf16: f32 statistics and
+    normalisation, output in ``dtype`` or the input's type. bf16: the
+    input is cast to bf16 and ``LayerNormBF16`` runs (K9 forward, K10
+    backward on the card), output bf16. No model of the port builds it:
+    the Swin blocks use ``layer_norm``, as the JAX ones use flax's."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype != torch.bfloat16:
+            xf = x.float()
+            mean = xf.mean(-1, keepdim=True)
+            var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+            y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+            return y.to(self.dtype or x.dtype)
+        return LayerNormBF16.apply(x.to(torch.bfloat16), self.weight, self.bias, self.eps)

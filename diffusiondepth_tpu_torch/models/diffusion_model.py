@@ -23,9 +23,12 @@ class Diffusion_DCbase_Model(nn.Module):
                  inference_steps: int = 20, num_train_timesteps: int = 1000,
                  timestep_schedule: str = "uniform",
                  head_in_channels: Optional[Sequence[int]] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 use_pallas: bool = False, fused_window_attention: bool = True,
+                 remat_backbone: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.depth_backbone = BACKBONES.get(backbone_name)(dtype=dtype)
+        self.depth_backbone = BACKBONES.get(backbone_name)(
+            dtype=dtype, use_pallas=use_pallas, remat=remat_backbone,
+            fused_qkv_attention=fused_window_attention)
         self.depth_head = HEADS.get(head_name)(
             in_channels=head_in_channels, inference_steps=inference_steps,
             num_train_timesteps=num_train_timesteps,
@@ -47,7 +50,9 @@ class Diffusion_DCbase_Model(nn.Module):
 
 def build_model(cfg, device: Union[str, torch.device, None] = None) -> Diffusion_DCbase_Model:
     """The model of ``cfg`` with weights drawn from ``cfg.seed``, on the
-    card unless ``device="cpu"``; in eval mode."""
+    card unless ``device="cpu"``; in eval mode. ``cfg.use_pallas``,
+    ``cfg.fused_window_attention`` and ``cfg.remat_backbone`` choose the
+    Swin backbone's attention route and block rematerialisation."""
     dev = resolve_device(device)
     if cfg.model_name != "Diffusion_DCbase_":
         raise NotImplementedError(
@@ -68,6 +73,9 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> Diffusion
             num_train_timesteps=cfg.num_train_timesteps,
             timestep_schedule=cfg.timestep_schedule,
             head_in_channels=hic,
+            use_pallas=cfg.use_pallas and cfg.backbone_module == "swin",
+            fused_window_attention=cfg.fused_window_attention,
+            remat_backbone=cfg.remat_backbone,
             dtype=cfg.compute_dtype if cfg.dtype == "bfloat16" else None,
         )
     return model.eval()

@@ -59,14 +59,6 @@ def _rb(t: torch.Tensor) -> torch.Tensor:
     return t.to(BF16).float()
 
 
-def _check(name, expect, device):
-    for t, shape, dt in expect:
-        if tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(f"{name}: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous() or t.device != device:
-            raise ValueError(f"{name} inputs must be contiguous on one device")
-
-
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -148,7 +140,7 @@ def conv_link(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         expect.append((add, (B, H, W, cin), BF16))
     if te is not None:
         expect.append((te, (B, cin), BF16))
-    _check("conv_link", expect, x.device)
+    native.check_tensors("conv_link", expect, x.device)
     lib_fn, bm = _conv_link_lib()
     n_blocks = H * ((W + bm - 1) // bm)
     y = torch.empty((B, H, W, cout), dtype=BF16, device=x.device)
@@ -247,7 +239,7 @@ def ddim_step_plain(u6, aeff, beff, x, sched):
 
 def _check_step(name, u6, aeff, beff, x, sched):
     B, H, W, C = x.shape
-    _check(name, ((u6, (B, H, W, C), BF16), (x, (B, H, W, C), torch.float32),
+    native.check_tensors(name, ((u6, (B, H, W, C), BF16), (x, (B, H, W, C), torch.float32),
                   (aeff, (B, C), torch.float32), (beff, (B, C), torch.float32),
                   (sched, (4,), torch.float32)), x.device)
 
@@ -340,7 +332,7 @@ def sched_bwd(dxp: torch.Tensor, dxpb: Optional[torch.Tensor], u6: torch.Tensor,
               (coefs, (B, 8, C), torch.float32), (sched, (4,), torch.float32)]
     if dxpb is not None:
         expect.append((dxpb, (B, H, W, C), BF16))
-    _check("sched_bwd", expect, u6.device)
+    native.check_tensors("sched_bwd", expect, u6.device)
     mod = native.triton_module("sched_bwd")
     dx = torch.empty_like(dxp)
     t6 = torch.empty_like(u6)
@@ -455,7 +447,7 @@ def conv_link_bwd(r: torch.Tensor, w: torch.Tensor, u_in: torch.Tensor,
         expect.append((add, (B, H, W, cin), BF16))
     if te is not None:
         expect.append((te, (B, cin), BF16))
-    _check("conv_link_bwd", expect, r.device)
+    native.check_tensors("conv_link_bwd", expect, r.device)
     lib_fn, bm = _conv_link_bwd_lib()
     dev = r.device
     # the data-gradient pass is K1's conv on du with the flipped, transposed weights

@@ -27,13 +27,15 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-CUDA_SOURCES = ("conv_link", "window_attention", "conv_link_bwd", "window_attention_bwd")
+CUDA_SOURCES = ("conv_link", "window_attention", "conv_link_bwd", "window_attention_bwd",
+                "window_attention_split")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 LAUNCHES: Dict[str, int] = {
     "conv_link": 0, "ddim_step": 0, "window_attention": 0,
     "sched_step": 0, "conv_link_bwd": 0, "sched_bwd": 0, "window_attention_bwd": 0,
+    "window_attention_split": 0, "layernorm_fwd": 0, "layernorm_bwd": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -55,7 +57,8 @@ def no_autograd(kernel: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{kernel} has no autograd: call it under torch.no_grad or through its "
-            "torch.autograd.Function (FusedDenoiser, FusedSamplerStep, WindowAttentionQKV)")
+            "torch.autograd.Function (FusedDenoiser, FusedSamplerStep, WindowAttentionQKV, "
+            "LayerNormBF16)")
 
 
 def triton_module(name: str):
@@ -128,6 +131,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def check_tensors(kernel: str, expect, device) -> None:
+    """Raise unless each (tensor, shape, dtype) of ``expect`` has that shape
+    and type and lies contiguous on ``device``."""
+    for t, shape, dt in expect:
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{kernel}: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{kernel} inputs must be contiguous on one device")
 
 
 def check(err: int, kernel: str) -> None:

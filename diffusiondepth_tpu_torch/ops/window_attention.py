@@ -9,6 +9,12 @@ kernel ``csrc/window_attention.cu`` (K4) and ``window_attention_bwd`` the
 kernel ``csrc/window_attention_bwd.cu`` (K7) on a CUDA tensor; both run
 their plain versions on a CPU tensor. ``WindowAttentionQKV`` is the
 ``torch.autograd.Function`` the Swin blocks call.
+
+``window_attention_split`` is the port of the v2 attention on split q/k/v
+(``window_attention_pallas``, kernels ``_kernel_masked/_kernel_nomask``):
+the CUDA kernel ``csrc/window_attention_split.cu`` (K8) on the card, its
+plain version on the CPU. The Swin blocks take it with ``use_pallas`` at
+eval.
 """
 
 from __future__ import annotations
@@ -53,6 +59,27 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
     attn = torch.softmax(attn, dim=-1).to(dt).float()
     out = torch.einsum("bwhqk,bwkhd->bwqhd", attn, v)
     return out.reshape(b, nw, n, c).to(dt)
+
+
+def window_attention_einsum(qkv: torch.Tensor, bias: torch.Tensor,
+                            mask: Optional[torch.Tensor], scale: float,
+                            num_heads: int) -> torch.Tensor:
+    """The JAX ``WindowMSA`` einsum path (``use_pallas`` training,
+    ``fused_qkv_attention=False``), differentiable, in plain PyTorch: no
+    kernel, as JAX leaves it to XLA. qkv (B, nW, N, 3C) -> (B, nW, N, C).
+    Its rounding points are not K4's: ``q * scale``, the logits and the
+    bias and mask adds are in the input type, the softmax in f32, and the
+    probabilities go back to the input type before P.v."""
+    b, nw, n, c3 = qkv.shape
+    c = c3 // 3
+    dt = qkv.dtype
+    q, k, v = qkv.reshape(b, nw, n, 3, num_heads, c // num_heads).unbind(3)
+    q = q * torch.tensor(scale, dtype=dt, device=qkv.device)
+    attn = torch.einsum("bwqhd,bwkhd->bwhqk", q, k) + bias.to(dt)[None, None]
+    if mask is not None:
+        attn = attn + mask.to(dt)[None, :, None]
+    attn = torch.softmax(attn.float(), dim=-1).to(dt)
+    return torch.einsum("bwhqk,bwkhd->bwqhd", attn, v).reshape(b, nw, n, c)
 
 
 def _check(qkv, bias, mask, num_heads, dout=None):
@@ -198,3 +225,82 @@ class WindowAttentionQKV(torch.autograd.Function):
         dqkv, dbias = window_attention_bwd(qkv, bias, mask, dout.contiguous(),
                                            ctx.scale, ctx.num_heads)
         return dqkv, dbias.to(bias.dtype), None, None, None
+
+
+def window_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 bias: torch.Tensor, mask: Optional[torch.Tensor],
+                                 scale: float) -> torch.Tensor:
+    """K8's arithmetic in plain PyTorch, following the JAX kernel's
+    ``_attn_core``: q, k, v (B, nW, H, N, D), bias (H, N, N) f32, mask
+    (nW, N, N) f32 or None. ``q * scale`` is rounded to the input type
+    (scale too), logits and softmax are f32, the probabilities are rounded
+    to the input type before P.v, and P.v accumulates in f32. Returns
+    (B, nW, H, N, D) in the input type."""
+    dt = q.dtype
+    sc = torch.tensor(scale, dtype=dt, device=q.device)
+    attn = torch.einsum("bwhnd,bwhmd->bwhnm", (q * sc).float(), k.float())
+    attn = attn + bias.float()[None, None]
+    if mask is not None:
+        attn = attn + mask.float()[None, :, None]
+    p = torch.softmax(attn, dim=-1).to(dt).float()
+    return torch.einsum("bwhnm,bwhmd->bwhnd", p, v.float()).to(dt)
+
+
+def _check_split(q, k, v, bias, mask):
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, nw, h, n, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"the kernel takes head dim {HEAD_DIM}, got {d}")
+    if n > MAX_TOKENS:
+        raise ValueError(f"the kernel takes at most {MAX_TOKENS} tokens per window, got {n}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for t in (k, v):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"q, k and v must be {q.dtype} {tuple(q.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for t in (q, k, v):
+        if t.stride(-1) != 1 or t.device != q.device:
+            raise ValueError("q, k and v need a unit stride along D, on one device")
+    if bias.shape != (h, n, n) or bias.dtype != torch.float32:
+        raise ValueError(f"bias must be f32 {(h, n, n)}, got {bias.dtype} {tuple(bias.shape)}")
+    if mask is not None and (mask.shape != (nw, n, n) or mask.dtype != torch.float32):
+        raise ValueError(f"mask must be f32 {(nw, n, n)}, got {mask.dtype} {tuple(mask.shape)}")
+    for t in (bias, mask):
+        if t is not None and (not t.is_contiguous() or t.device != q.device):
+            raise ValueError("bias and mask must be contiguous on q's device")
+
+
+@functools.lru_cache(maxsize=None)
+def _split_launch_fn():
+    fn = native.load("window_attention_split").window_attention_split_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def window_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask: Optional[torch.Tensor],
+                           scale: float) -> torch.Tensor:
+    """softmax(round(q * scale) k^T + bias [+ mask]) v on q, k, v (B, nW, H,
+    N, D), each read with its own strides (unit stride along D): the CUDA
+    kernel on the card, the plain version for a CPU tensor. Returns a
+    contiguous (B, nW, H, N, D) tensor in the input type."""
+    native.no_autograd("window_attention_split", q, k, v, bias, mask)
+    if q.device.type == "cpu":
+        return window_attention_split_plain(q, k, v, bias, mask, scale)
+    _check_split(q, k, v, bias, mask)
+    b, nw, h, n, d = q.shape
+    out = torch.empty((b, nw, h, n, d), dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v) for s in t.stride()[:4]]
+    with torch.cuda.device(q.device):
+        err = _split_launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                 mask.data_ptr() if mask is not None else None, out.data_ptr(),
+                                 *strides, b, nw, h, n, float(scale),
+                                 1 if q.dtype == torch.bfloat16 else 0,
+                                 torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(err, "window_attention_split")
+    native.LAUNCHES["window_attention_split"] += 1
+    return out

@@ -1,5 +1,5 @@
 """Train and eval step factories (port of
-``diffusiondepth_tpu/training/steps.py``, without flip-TTA).
+``diffusiondepth_tpu/training/steps.py``).
 
 Loss normalisation is the JAX package's: the per-sample masked losses are
 summed over the batch and the sum is divided by the global batch size, so
@@ -67,7 +67,13 @@ def make_train_step(model, loss_computer, optimizer, accum_steps: int = 1) -> Ca
     return train_step
 
 
-def make_eval_step(model) -> Callable:
+def _hflip_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Mirror every 4-D (NHWC) entry along W, the TTA flip."""
+    return {k: torch.flip(v, dims=(2,)) if torch.is_tensor(v) and v.ndim == 4 else v
+            for k, v in batch.items()}
+
+
+def make_eval_step(model, tta_flip: bool = False) -> Callable:
     """Returns ``eval_step(batch, generator=None, init_latent=None) ->
     (pred, metric_row, extras)``.
 
@@ -75,14 +81,32 @@ def make_eval_step(model) -> Callable:
     parameters live on (the batch's tensors must be there too). The starting
     latent comes from ``generator`` (a ``torch.Generator`` on that device)
     unless ``init_latent`` fixes it. No ddim_loss is computed at eval.
-    ``extras`` is empty: no output of this slice's model needs it."""
+    ``extras`` is empty: no output of this slice's model needs it.
+
+    ``tta_flip=True`` is the leaderboard protocol's flip ensemble: every
+    entry of the batch is concatenated with its mirror along W (entries
+    that are not images with themselves) into one batch of 2B, and
+    pred = (pred[:B] + flip(pred[B:])) / 2. A given ``init_latent`` must
+    then have 2B rows, the first B for the batch and the rest for its
+    mirror. The metric row is computed on the original batch."""
     model.eval()
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None,
                   init_latent: Optional[torch.Tensor] = None):
-        out = model(batch, init_latent=init_latent, generator=generator)
+        if tta_flip:
+            b = batch["rgb"].shape[0]
+            flipped = _hflip_batch(batch)
+            both = {k: torch.cat([v, flipped[k]]) if torch.is_tensor(v) and v.ndim >= 1 else v
+                    for k, v in batch.items()}
+            if init_latent is not None and init_latent.shape[0] != 2 * b:
+                raise ValueError(f"flip-TTA runs a batch of {2 * b}: init_latent has "
+                                 f"{init_latent.shape[0]} rows")
+            out = model(both, init_latent=init_latent, generator=generator)
+            out = dict(out, pred=0.5 * (out["pred"][:b] + torch.flip(out["pred"][b:], dims=(2,))))
+        else:
+            out = model(batch, init_latent=init_latent, generator=generator)
         metric_val = evaluate_depth_metrics(batch, out)
         return out["pred"], metric_val, {}
 

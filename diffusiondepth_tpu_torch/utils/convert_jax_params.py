@@ -3,7 +3,10 @@
 The inverse of ``diffusiondepth_tpu/utils/convert_torch_checkpoint.py``'s
 ``convert_reference_model`` for the flagship composition (Swin backbone,
 DDIM head with FPN, ``DeepDepthTransformWithUpsampling``,
-``ScheduledCNNRefine`` and the HAHI conv path). It takes the flax
+``ScheduledCNNRefine`` and the HAHI conv path). Every registered Swin
+(the three Swin-L names, ``swin_tiny``, ``swin_micro``) has the same tree
+layout; only the widths and depths differ. The tree of a standalone
+``models/common.py::LayerNorm`` maps onto that module's state dict. It takes the flax
 ``params`` and ``batch_stats`` trees as nested dicts of numpy arrays and
 returns tensors under the reference torch names, the names the port's
 modules use. The layout rules are the converter's, inverted:
@@ -151,6 +154,8 @@ def jax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[
     running statistics."""
     batch_stats = batch_stats or {}
     out: Dict[str, Any] = {}
+    if set(params) == {"scale", "bias"}:  # a standalone LayerNorm
+        out = {"weight": params["scale"], "bias": params["bias"]}
     if "depth_backbone" in params:
         if "patch_embed" not in params["depth_backbone"]:
             raise NotImplementedError("only the Swin backbone is ported yet")

@@ -12,6 +12,7 @@ import torch
 
 import diffusiondepth_tpu_torch as port
 from diffusiondepth_tpu_torch.ops import fused_denoiser as fd
+from diffusiondepth_tpu_torch.ops import layernorm as ln
 from diffusiondepth_tpu_torch.ops import window_attention as wa
 
 torch.set_num_threads(1)
@@ -90,23 +91,59 @@ def test_wrappers_take_plain_versions_on_cpu():
     bias = torch.randn(1, 49, 49, generator=g)
     assert torch.equal(wa.window_attention(qkv, bias, None, 0.17, 1),
                        wa.window_attention_plain(qkv, bias, None, 0.17, 1))
-    assert set(port.LAUNCHES) >= {"conv_link", "ddim_step", "window_attention"}
+    q, k, v = torch.randn(3, 1, 2, 1, 49, 32, generator=g).to(bf)
+    mask = torch.randn(2, 49, 49, generator=g)
+    assert torch.equal(wa.window_attention_split(q, k, v, bias, mask, 0.17),
+                       wa.window_attention_split_plain(q, k, v, bias, mask, 0.17))
+    x2 = torch.randn(37, 96, generator=g).to(bf)
+    sc, sh = torch.rand(96, generator=g) + 0.5, torch.randn(96, generator=g)
+    y, mean, inv = ln.layernorm_fwd(x2, sc, sh, 1e-5)
+    for a, b_ in zip((y, mean, inv), ln.layernorm_fwd_plain(x2, sc, sh, 1e-5)):
+        assert torch.equal(a, b_)
+    dy = torch.randn(37, 96, generator=g).to(bf)
+    for a, b_ in zip(ln.layernorm_bwd(x2, dy, mean, inv, sc),
+                     ln.layernorm_bwd_plain(x2, dy, mean, inv, sc)):
+        assert torch.equal(a, b_)
+    assert set(port.LAUNCHES) >= {"conv_link", "ddim_step", "window_attention",
+                                  "window_attention_split", "layernorm_fwd", "layernorm_bwd"}
     assert not any(port.LAUNCHES.values())
 
 
-def test_cpu_eval_launches_no_kernel():
+@pytest.mark.parametrize("kernel", ["window_attention_split", "layernorm_fwd",
+                                    "layernorm_bwd"])
+def test_wrappers_refuse_other_devices(kernel):
+    """Off the CPU a wrapper launches its kernel or raises: given tensors
+    on a device it has no kernel for (meta), it raises instead of running
+    the plain version."""
+    q = torch.empty(1, 2, 1, 49, 32, device="meta")
+    x2 = torch.empty(8, 96, device="meta", dtype=torch.bfloat16)
+    vec = torch.empty(96, device="meta")
+    rows = torch.empty(8, device="meta")
+    call = {
+        "window_attention_split": lambda: wa.window_attention_split(
+            q, q, q, torch.empty(1, 49, 49, device="meta"), None, 0.17),
+        "layernorm_fwd": lambda: ln.layernorm_fwd(x2, vec, vec, 1e-5),
+        "layernorm_bwd": lambda: ln.layernorm_bwd(x2, x2, rows, rows, vec),
+    }[kernel]
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_cpu_eval_launches_no_kernel(use_pallas):
     """A whole eval step on the CPU under the bf16 policy takes the fused
-    chain's plain versions and counts no launch."""
+    chain's plain versions and counts no launch, with flip-TTA and K8's
+    route too."""
     cfg = port.Config(model_name="Diffusion_DCbase_", backbone_module="swin",
                       backbone_name="swin_micro", inference_steps=2, opt_level="O1",
-                      head_in_channels="32,64,128,256").finalize()
+                      head_in_channels="32,64,128,256", use_pallas=use_pallas).finalize()
     model = port.build_model(cfg, device="cpu")
     assert model.depth_head.model.fused_active()
     port.reset_launch_counts()
     g = torch.Generator().manual_seed(1)
     batch = {"rgb": torch.randn(1, 32, 48, 3, generator=g),
              "gt": torch.rand(1, 32, 48, 1, generator=g) * 5 + 1}
-    pred, met, _ = port.make_eval_step(model)(batch, generator=g)
+    pred, met, _ = port.make_eval_step(model, tta_flip=use_pallas)(batch, generator=g)
     assert pred.shape == (1, 32, 48, 1) and bool(torch.isfinite(met).all())
     assert set(port.LAUNCHES) >= {"conv_link", "ddim_step", "window_attention"}
     assert not any(port.LAUNCHES.values())
@@ -123,22 +160,31 @@ def _grad_inputs():
     return x, w, u6, lat, qkv
 
 
-@pytest.mark.parametrize("kernel", ["conv_link", "ddim_step", "window_attention"])
+@pytest.mark.parametrize("kernel", ["conv_link", "ddim_step", "window_attention",
+                                    "window_attention_split", "layernorm_fwd",
+                                    "layernorm_bwd"])
 def test_raw_wrappers_refuse_inputs_that_need_grad(kernel):
     """The raw kernel wrappers return tensors without a grad_fn on the card
     (the result is written through ctypes or Triton), so with grad mode on
     and an input that requires grad they raise, on the CPU too, instead of
     silently cutting the gradient; under no_grad they run. Training goes
     through the autograd Functions (FusedDenoiser, FusedSamplerStep,
-    WindowAttentionQKV)."""
+    WindowAttentionQKV, LayerNormBF16)."""
     x, w, u6, lat, qkv = _grad_inputs()
     one, zero = torch.ones(1, 16), torch.zeros(1, 16)
+    q5 = qkv.detach()[..., :32].reshape(1, 2, 1, 49, 32).requires_grad_()
+    x2 = x.reshape(-1, 16)[:4]
     sched = torch.tensor([0.8, 0.6, 0.9, 0.43589])
     call = {
         "conv_link": lambda: fd.conv_link(x, w, torch.zeros(64)),
         "ddim_step": lambda: fd.ddim_step(u6, one, zero, lat, sched),
         "window_attention": lambda: wa.window_attention(qkv, torch.zeros(1, 49, 49), None,
                                                         0.17, 1),
+        "window_attention_split": lambda: wa.window_attention_split(
+            q5, q5, q5, torch.zeros(1, 49, 49), None, 0.17),
+        "layernorm_fwd": lambda: ln.layernorm_fwd(x2, one[0], zero[0], 1e-5),
+        "layernorm_bwd": lambda: ln.layernorm_bwd(x2, x2.detach(), one[0, :4], one[0, :4],
+                                                  one[0]),
     }[kernel]
     with pytest.raises(RuntimeError, match="has no autograd"):
         call()

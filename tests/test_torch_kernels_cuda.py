@@ -1,4 +1,4 @@
-"""The port's CUDA and Triton kernels (K1-K7) against their plain versions
+"""The port's CUDA and Triton kernels (K1-K10) against their plain versions
 on the card, at small shapes with ragged edges. Marked ``cuda``: they skip where
 there is no CUDA device. On a machine with a card and without JAX:
 
@@ -11,6 +11,7 @@ import torch
 from diffusiondepth_tpu_torch import LAUNCHES
 from diffusiondepth_tpu_torch.models.backbones.swin import shifted_window_mask
 from diffusiondepth_tpu_torch.ops import fused_denoiser as fd
+from diffusiondepth_tpu_torch.ops import layernorm as ln
 from diffusiondepth_tpu_torch.ops import window_attention as wa
 
 pytestmark = pytest.mark.cuda
@@ -193,3 +194,59 @@ def test_window_attention_bwd_matches_plain(dev, dtype, masked):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert (dq.float() - rq.float()).abs().max() <= tol * rq.float().abs().max()
     assert (db - rb).abs().max() <= 1e-4 * rb.abs().max()
+
+
+@pytest.mark.parametrize("dtype,masked,strided", [
+    (torch.bfloat16, False, False), (torch.bfloat16, True, True), (torch.float32, True, False)])
+def test_window_attention_split_matches_plain_and_k4(dev, dtype, masked, strided):
+    """K8: bf16 to one output step (2e-2), f32 to summation order (1e-5);
+    and the same bits as K4 on the same data, which it sums in the same
+    order. ``strided`` hands it permuted views of the qkv output, read
+    through their strides."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    nw, heads = 6, 3
+    qkv = _rand(g, dev, 2, nw, 49, 3 * 32 * heads, dtype=dtype)
+    bias = _rand(g, dev, heads, 49, 49, scale=0.1)
+    mask = torch.from_numpy(shifted_window_mask(14, 21, 7, 3)).to(dev) if masked else None
+    q, k, v = (t.permute(0, 1, 3, 2, 4) for t in qkv.view(2, nw, 49, 3, heads, 32).unbind(3))
+    if not strided:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    n0 = LAUNCHES["window_attention_split"]
+    out = wa.window_attention_split(q, k, v, bias, mask, 32 ** -0.5)
+    ref = wa.window_attention_split_plain(q, k, v, bias, mask, 32 ** -0.5)
+    k4 = wa.window_attention(qkv, bias, mask, 32 ** -0.5, heads)
+    torch.cuda.synchronize()
+    assert LAUNCHES["window_attention_split"] == n0 + 1 and out.is_contiguous()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (out.float() - ref.float()).abs().max() <= tol
+    assert torch.equal(out.permute(0, 1, 3, 2, 4).reshape(k4.shape), k4)
+
+
+@pytest.mark.parametrize("m,c", [(300, 192), (129, 384), (37, 3072), (1001, 768)])
+def test_layernorm_fwd_bwd_match_plain(dev, m, c):
+    """K9: y within one bf16 step (1e-2 of the largest value), mean to
+    1e-5 and inv to 1e-4 (Triton's rsqrt) relative. K10: dx within one
+    bf16 step, dscale and dbias to f32 summation order (1e-3 of the
+    largest value); two launches give the same bits. M is not a multiple
+    of any row block."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = _rand(g, dev, m, c, scale=2.0, dtype=torch.bfloat16) + 0.5
+    dy = _rand(g, dev, m, c, dtype=torch.bfloat16)
+    scale = 1 + _rand(g, dev, c, scale=0.2)
+    bias = _rand(g, dev, c, scale=0.1)
+    n0 = dict(LAUNCHES)
+    y, mean, inv = ln.layernorm_fwd(x, scale, bias, 1e-5)
+    ry, rmean, rinv = ln.layernorm_fwd_plain(x, scale, bias, 1e-5)
+    dx, ds, db = ln.layernorm_bwd(x, dy, mean, inv, scale)
+    dx2, ds2, db2 = ln.layernorm_bwd(x, dy, mean, inv, scale)
+    rdx, rds, rdb = ln.layernorm_bwd_plain(x, dy, mean, inv, scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["layernorm_fwd"] == n0["layernorm_fwd"] + 1
+    assert LAUNCHES["layernorm_bwd"] == n0["layernorm_bwd"] + 2
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2) and torch.equal(db, db2)
+    assert (y.float() - ry.float()).abs().max() <= 1e-2 * ry.float().abs().max()
+    assert ((mean - rmean).abs() <= 1e-5 * (1 + rmean.abs())).all()
+    assert ((inv - rinv).abs() <= 1e-4 * rinv.abs()).all()
+    assert (dx.float() - rdx.float()).abs().max() <= 1e-2 * rdx.float().abs().max()
+    for a, b_ in ((ds, rds), (db, rdb)):
+        assert (a - b_).abs().max() <= 1e-3 * b_.abs().max()
