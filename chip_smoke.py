@@ -89,6 +89,8 @@ STEPS = 20
 SWIN_L = dict(depths=(2, 2, 18, 2), heads=(6, 12, 24, 48), dims=(192, 384, 768, 1536))
 # training: global batch 8 as 2 micro-batches of 4 on 352x906 crops
 B_T, ACCUM, H_T, W_T = 8, 2, 352, 906
+# the kernels of K5's three passes, by a part of their names
+K5_PASSES = ("data_grad_kernel", "weight_grad_kernel", "reduce_kernel")
 LINKS = [  # (name, cin, cout, gn+relu in, add+te, stats out)
     ("ne0", 16, 64, False, False, True),
     ("ne1", 64, 256, True, False, True),
@@ -165,8 +167,9 @@ def main() -> int:
         layernorm_bwd, layernorm_bwd_plain, layernorm_fwd, layernorm_fwd_plain,
     )
     from diffusiondepth_tpu_torch.ops.fused_denoiser import (
-        _link_input_plain, conv_link, conv_link_bwd, conv_link_bwd_plain, conv_link_plain,
-        ddim_step, ddim_step_plain, sched_bwd, sched_bwd_plain, sched_step, sched_step_plain,
+        _conv_link_lib, _link_input_plain, conv_link, conv_link_bwd, conv_link_bwd_plain,
+        conv_link_plain, ddim_step, ddim_step_plain, sched_bwd, sched_bwd_plain, sched_step,
+        sched_step_plain,
     )
     from diffusiondepth_tpu_torch.ops.window_attention import (
         window_attention, window_attention_bwd, window_attention_bwd_plain,
@@ -226,6 +229,37 @@ def main() -> int:
         from Python may read the host's launch cost instead."""
         return graph_ms(fn), cuda_ms(fn, iters)
 
+    def median_ms(fn, iters=15, warmup=5):
+        """Median of event-timed single calls after warm-up: a library
+        call whose first calls tune or allocate reads steady this way."""
+        for _ in range(warmup):
+            fn()
+        sync()
+        times = []
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    def pass_split(fn, names):
+        """Device ms of one warmed call of fn by kernel, summed over the
+        kernels whose name holds each of ``names`` (torch.profiler, CUDA
+        activity)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        return {n: sum(e.self_device_time_total for e in prof.key_averages() if n in e.key) / 1e3
+                for n in names}
+
     # ---- 1. environment
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -257,6 +291,7 @@ def main() -> int:
 
     # ---- 3a. K1 conv link, six configurations of the chain at the bs8 eval latent
     lh, lw = H_IMG // 2, W_IMG // 2
+    k1_bm = _conv_link_lib()[1]  # output pixels per block: one partial each
     k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
               flops=0.0, bytes=0.0)
     for lname, cin, cout, gn, add, stats in LINKS:
@@ -270,15 +305,19 @@ def main() -> int:
         if add:
             kw.update(add=randn(B, lh, lw, cin, dtype=bf), te=randn(B, cin, dtype=bf, scale=0.1))
         y_k, ps_k = conv_link(x, w, bias, **kw)
+        y_2, ps_2 = conv_link(x, w, bias, **kw)
         y_p, ps_p = conv_link_plain(x, w, bias, **kw)
         sync()
+        bitwise = torch.equal(y_k, y_2) and (not stats or torch.equal(ps_k, ps_2))
+        check(bitwise, f"conv_link {lname}: two launches differ")
         err = (y_k.float() - y_p.float()).abs().max().item()
         ref = y_p.float().abs().max().item()
         # bf16 y: f32 sums in another order may round to the neighbouring
         # bf16 value (2^-8 relative); 1e-2 of the map's largest value
         tol = 1e-2 * ref
         rec = {"phase": "kernel", "kernel": "conv_link", "link": lname, "cin": cin,
-               "cout": cout, "shape": [B, lh, lw], "max_abs_err": err, "tol": tol}
+               "cout": cout, "shape": [B, lh, lw], "max_abs_err": err, "tol": tol,
+               "bitwise_repeatable": bitwise}
         check(math.isfinite(err) and err <= tol, f"conv_link {lname}: {err} > {tol}")
         if stats:
             sk = ps_k.sum(1)
@@ -298,7 +337,7 @@ def main() -> int:
         nbytes = (n_pix * cin * 2 * (2 if add else 1) + 9 * cin * cout * 2 + cout * 4
                   + n_pix * cout * 2 + (2 * B * cin * 4 if gn else 0)
                   + (B * cin * 2 if add else 0)
-                  + (B * lh * math.ceil(lw / 128) * 2 * cout * 4 if stats else 0))
+                  + (B * lh * math.ceil(lw / k1_bm) * 2 * cout * 4 if stats else 0))
         flops = 2.0 * n_pix * 9 * cin * cout
         bms, by = bound(nbytes, flops, BF16_FLOPS)
         rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
@@ -308,8 +347,11 @@ def main() -> int:
                        ("library_ms", lib_ms), ("flops", flops), ("bytes", nbytes)):
             k1[k] += val
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        del x, w, y_k, y_p, v
+        del x, w, y_k, y_2, y_p, v
     k1["bound_by"] = bound(k1["bytes"], k1["flops"], BF16_FLOPS)[1]
+    emit({"phase": "kernel", "kernel": "conv_link", "what": "one six-link chain",
+          "ms": k1["ms"], "library_ms": k1["library_ms"], "bound_ms": k1["bound_ms"],
+          "tflops": k1["flops"] / k1["ms"] / 1e9})
     summary["conv_link"] = k1
     sync()
 
@@ -375,8 +417,10 @@ def main() -> int:
             else:
                 amask = (bias[None] + mask[:, None]).to(bf)
                 amask = amask.expand(B, nw, heads, 49, 49).reshape(B * nw, heads, 49, 49)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=amask, scale=scale), iters)
+            # SDPA as the median of warmed single calls: an event-timed
+            # loop read it unsteadily between runs
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=amask, scale=scale))
             nbytes = qkv.numel() * 2 + B * nw * 49 * c * 2 + bias.numel() * 4 + (
                 mask.numel() * 4 if shifted else 0)
             flops = 4.0 * B * nw * heads * 49 * 49 * (c // heads)
@@ -394,6 +438,7 @@ def main() -> int:
             k4["max_abs_err"] = max(k4["max_abs_err"], err)
         del qkv, out_k, out_p
     k4["bound_by"] = "bytes"
+    emit({"phase": "kernel", "kernel": "window_attention", "what": "one Swin-L pass", **k4})
     summary["window_attention"] = k4
     sync()
 
@@ -460,6 +505,7 @@ def main() -> int:
     # ---- 3f. K5 conv-link backward, six links on the training latent
     k5 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
               flops=0.0, bytes=0.0)
+    k5_pass = {n: 0.0 for n in K5_PASSES}
 
     def coef8(c):
         out = torch.zeros(tb, 8, c, device=dev)
@@ -506,6 +552,12 @@ def main() -> int:
             rec[nm + "_err"], rec[nm + "_tol"] = e, tol
         k5["max_abs_err"] = max(k5["max_abs_err"], rec["t_err"])
         ms = cuda_ms(lambda: conv_link_bwd(r, w, u_in, **kw), iters)
+        # device time of one launch by pass: data gradient, weight
+        # gradient, the fixed-order reduce
+        split = pass_split(lambda: conv_link_bwd(r, w, u_in, **kw), K5_PASSES)
+        rec["pass_ms"] = split
+        for pn, pv in split.items():
+            k5_pass[pn] += pv
         plain_ms = cuda_ms(lambda: conv_link_bwd_plain(r, w, u_in, **kw), max(1, iters // 3), 1)
         # library: cuDNN's input and weight gradients of the same conv on the
         # pre-transformed input and the assembled du
@@ -534,6 +586,9 @@ def main() -> int:
             k5[k] += val
         del r, u_in, out_k, again, out_p, v, du
     k5["bound_by"] = bound(k5["bytes"], k5["flops"], BF16_FLOPS)[1]
+    emit({"phase": "kernel", "kernel": "conv_link_bwd", "what": "one six-link chain",
+          "ms": k5["ms"], "library_ms": k5["library_ms"], "bound_ms": k5["bound_ms"],
+          "tflops": k5["flops"] / k5["ms"] / 1e9, "pass_ms": k5_pass})
     summary["conv_link_bwd"] = k5
     sync()
 
@@ -578,8 +633,8 @@ def main() -> int:
             lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=scale)
             g_out = dout.view(tb, nw, 49, heads, d).permute(0, 1, 3, 2, 4).reshape(
                 tb * nw, heads, 49, d)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v, am), g_out,
-                                                         retain_graph=True), iters)
+            lib_ms = median_ms(lambda: torch.autograd.grad(lib_out, (q, k, v, am), g_out,
+                                                           retain_graph=True))
             nbytes = (qkv.numel() * 2 * 2 + dout.numel() * 2 + bias.numel() * 4 * 2
                       + (mask.numel() * 4 if shifted else 0))
             flops = 10.0 * tb * nw * heads * 49 * 49 * d
@@ -598,6 +653,7 @@ def main() -> int:
             del q, k, v, am, lib_out
         del qkv, dout
     k7["bound_by"] = "bytes"
+    emit({"phase": "kernel", "kernel": "window_attention_bwd", "what": "one Swin-L pass", **k7})
     summary["window_attention_bwd"] = k7
     sync()
 
@@ -637,8 +693,8 @@ def main() -> int:
             else:
                 amask = (bias[None] + mask[:, None]).to(bf)
                 amask = amask.expand(B, nw, heads, 49, 49).reshape(B * nw, heads, 49, 49)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                ql, kl, vl, attn_mask=amask, scale=scale), iters)
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=amask, scale=scale))
             nbytes = 4 * q.numel() * 2 + bias.numel() * 4 + (mask.numel() * 4 if shifted else 0)
             flops = 4.0 * B * nw * heads * 49 * 49 * d
             bms, by = bound(nbytes, flops, BF16_FLOPS)
@@ -655,6 +711,8 @@ def main() -> int:
             del out_k, out_p, out_4, amask
         del qkv, q, k, v, ql, kl, vl
     k8["bound_by"] = "bytes"
+    emit({"phase": "kernel", "kernel": "window_attention_split", "what": "one Swin-L pass",
+          **k8})
     summary["window_attention_split"] = k8
     sync()
 

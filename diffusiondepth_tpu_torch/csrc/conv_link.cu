@@ -1,181 +1,78 @@
 // One link of the denoiser conv chain on Hopper (kernel K1 of the port).
 //
 // Replaces the TPU kernel diffusiondepth_tpu/ops/fused_denoiser.py
-// _link_kernel (reached through _fused_link). It computes
+// _link_kernel (:63, reached through _fused_link). It computes
 //
 //   y = conv3x3( zero_outside_image( T(x) ) ) + bias
 //   T(x) = [relu]( [x * aeff + beff] ) [+ (add [+ te])]
 //
 // on the unpadded NHWC layout, with bf16 operands, f32 accumulation, bf16
 // y, and per-(batch, block) f32 sums (sum y, sum y^2) of the accumulator
-// for the GroupNorm that follows. The prologue rounds to bf16 after every
-// operation, as the TPU kernel's bf16 arithmetic does, and zeroes the
-// out-of-image taps after the transform: the conv pads the transformed map
-// with zeros, so padding x with zeros would be wrong (T(0) != 0).
+// plus bias for the GroupNorm that follows. The prologue rounds to bf16
+// after every operation, as the TPU kernel's bf16 arithmetic does, and
+// leaves the out-of-image taps at zero after the transform: the conv pads
+// the transformed map with zeros, so padding x with zeros would be wrong
+// (T(0) != 0).
 //
 // What bounds it on the H100: at the bs8 eval latent (8, 176, 608) the
 // 256->256 links do 2*B*H*W*9*Cin*Cout = 1.01 TFLOP for ~0.5 GB of traffic,
 // ~2000 FLOP per byte, far above the card's ~295 FLOP/byte ridge: the link
-// is bound by tensor-core operations.
+// is bound by tensor-core operations (1.02 ms at 989 TFLOP/s).
 //
-// What the design does about it: an implicit GEMM (M = output pixels,
-// N = Cout, K = 9 taps x Cin) on the tensor cores through WMMA bf16 16x16x16
-// fragments with f32 accumulators. A block owns 128 output pixels of one
-// image row and 128 output channels (64 when Cout is not a multiple of
-// 128, 16 for the last link). For each 16-channel chunk of Cin it stages
-// the 3-row halo once in shared memory and transforms it in place, so the
-// nine taps are nine shifted views of the same tile and the prologue runs
-// once per input element per block, not nine times; the chunk's weights
-// for all nine taps sit beside it. Two stages: cp.async copies the next
-// chunk while the current one is transformed and multiplied. The
-// output-channel blocks of a row segment are launched next to each other,
-// so they find its input in L2. Registers are capped for two blocks per
-// SM. The statistics are reduced inside the block and written per block,
-// with no atomics and no order between blocks: the caller sums the
-// (B, n_blocks, 2, Cout) buffer. The TPU devices that have no use here
-// (the zero-bordered Wp layout, pltpu.roll taps, dr-chunking for the
-// 128-wide MXU) are not carried over. Not yet done: wgmma and TMA; that
-// is later work.
+// What the design does about it: the implicit GEMM of csrc/conv3x3_sm90.cuh
+// (M = 128 output pixels of one row segment, N = the whole Cout up to 256,
+// K = 9 taps x Cin in 64-channel chunks) on wgmma, fed by a TMA/mbarrier
+// ring: two halo stages, each transformed in place once and used by all
+// nine taps, and three (N = 256) or six weight stages. With N = 256 the
+// halo of a row segment is staged and transformed once for all output
+// channels. One producer warpgroup (one thread issues TMA) and two
+// consumer warpgroups, registers moved to the consumers with setmaxnreg.
+// The prologue runs in the consumers between the chunk's arrival and its
+// first tap, four units' loads in flight at a time: its f32 arithmetic
+// with a rounding after every operation, and the add map's loads, are what
+// make the transformed links slower than the plain ones (fa against fb).
+// Neither interleaving it with the previous chunk's wgmma nor packed bf16
+// operations (which broke the statistics' 1e-4) made it cheaper. The
+// epilogue adds the bias, writes y as bf16 pairs, and reduces the
+// statistics from the wgmma fragments: warp shuffles over each warp's 16
+// rows, then the eight warps in a fixed order through shared memory. No
+// atomics: two launches give the same bits. The caller sums the
+// (B, n_blocks, 2, Cout) partials. The weights arrive as (3, 3, Cout, Cin)
+// (K contiguous); the wrapper transposes them.
+//
+// The 16-wide links use the same loop: ne0 (Cin = 16) with 16-channel
+// chunks in 32-byte swizzled rows, pr1 (Cout = 16) with m64n16 wgmma, two
+// blocks per SM. Together ~1.2% of the chain's operations, they are bound
+// by moving their maps (pr1 reads a 64-channel x and writes 16 channels)
+// and by the pipeline's fill and the epilogue per block, not by the tensor
+// cores.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // output pixels per block, along one image row
-constexpr int BK = 16;   // input channels per k-chunk
-constexpr int KV = BK / 8;  // 16-byte vectors per pixel and chunk
-constexpr int NTHREADS = 256;
+using namespace sm90;
 
 constexpr int F_GN = 1, F_RELU = 2, F_ADD = 4, F_TE = 8, F_STATS = 16;
 
-__device__ __forceinline__ float rbf(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+// T(x) in place on a halo stage: per 16-byte unit of 8 channels, the
+// in-image units only (the TMA zero fill stays for the others). A thread
+// always handles the same 8 channels of a chunk, so it reads their affine
+// and te once per chunk. The add map is read from global memory.
+template <class Cfg>
+struct LinkTransform {
+  bool active;
+  const float* aeff;
+  const float* beff;
+  const __nv_bfloat16* add;
+  const __nv_bfloat16* te;
+  int b, h, w0, H, W, Cin, flags;
 
-__device__ __forceinline__ void unpack8(const uint4& raw, float* v) {
-  const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(p[k]);
-}
-
-__device__ __forceinline__ uint4 pack8(const float* v) {
-  uint4 raw;
-  __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) p[k] = __float2bfloat16(v[k]);
-  return raw;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int BN>
-__host__ __device__ constexpr int stage_elems() {
-  return 3 * (BM + 2) * BK + 9 * BK * BN;
-}
-
-template <int BN>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return 2 * static_cast<size_t>(stage_elems<BN>()) * sizeof(__nv_bfloat16);
-}
-
-template <int BN, int WARPS_M, int WARPS_N>
-__global__ void __launch_bounds__(NTHREADS, 2) conv_link_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ aeff,
-    const float* __restrict__ beff, const __nv_bfloat16* __restrict__ add,
-    const __nv_bfloat16* __restrict__ te, __nv_bfloat16* __restrict__ y,
-    float* __restrict__ partials, int H, int W, int Cin, int Cout,
-    int n_wtiles, int flags) {
-  constexpr int WM = BM / WARPS_M;
-  constexpr int WN = BN / WARPS_N;
-  constexpr int FM = WM / 16;
-  constexpr int FN = WN / 16;
-  static_assert(WARPS_M * WARPS_N * 32 == NTHREADS, "warp layout");
-  static_assert(FM >= 1 && FN >= 1, "warp tile");
-  static_assert(BM * BN * 4 <= smem_bytes<BN>(), "epilogue tile fits the stages");
-  constexpr int A_ELEMS = 3 * (BM + 2) * BK;
-  constexpr int RED_ROWS = NTHREADS / BN;
-
-  // two stages of [halo of x | weights]; the epilogue reuses the space for
-  // the f32 output tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float red[2][RED_ROWS][BN];
-  const bool has_add = flags & F_ADD;
-  const bool transform = flags & (F_GN | F_RELU | F_ADD);
-  constexpr int st_elems = stage_elems<BN>();
-  __nv_bfloat16* const base = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  // output-channel blocks of one row segment are neighbours in launch
-  // order, so the segment's input is read from L2 by all of them
-  const int nz = Cout / BN;
-  const int n0 = (blockIdx.x % nz) * BN;
-  const int seg = blockIdx.x / nz;
-  const int h = seg / n_wtiles;
-  const int wt = seg % n_wtiles;
-  const int w0 = wt * BM;
-  const int b = blockIdx.y;
-
-  // asynchronous copy of chunk c0 (16 input channels) into stage s: the
-  // raw 3-row halo (zeros outside the image) and the weights
-  auto issue = [&](int c0, int s) {
-    __nv_bfloat16* A = base + s * st_elems;
-    __nv_bfloat16* Bs = A + A_ELEMS;
-    for (int it = tid; it < 3 * (BM + 2) * KV; it += NTHREADS) {
-      const int kv = it % KV;
-      const int p = (it / KV) % (BM + 2);
-      const int r = (it / KV) / (BM + 2);
-      const int hh = h + r - 1;
-      const int ww = w0 + p - 1;
-      const bool valid = hh >= 0 && hh < H && ww >= 0 && ww < W;
-      const size_t off =
-          valid ? ((static_cast<size_t>(b) * H + hh) * W + ww) * Cin + c0 + kv * 8 : 0;
-      const int dst = (r * (BM + 2) + p) * BK + kv * 8;
-      cp_async16(A + dst, x + off, valid);
-    }
-    for (int it = tid; it < 9 * BK * (BN / 8); it += NTHREADS) {
-      const int col8 = it % (BN / 8);
-      const int row = it / (BN / 8);
-      const int tap = row / BK;
-      const int k = row % BK;
-      cp_async16(Bs + (tap * BK + k) * BN + col8 * 8,
-                 w + (static_cast<size_t>(tap) * Cin + c0 + k) * Cout + n0 + col8 * 8, true);
-    }
-    cp_async_commit();
-  };
-
-  // the prologue T(x), in place, on the in-image taps of stage s (the
-  // out-of-image taps stay zero: the conv pads the transformed map). A
-  // thread always handles the same 8 channels of a chunk (NTHREADS is a
-  // multiple of KV), so it reads their affine and te once per chunk. The
-  // add map is read here from global memory rather than staged, which keeps
-  // the add link's shared memory, and so its occupancy, that of the others.
-  static_assert(NTHREADS % KV == 0, "fixed channels per thread");
-  auto apply_transform = [&](int c0, int s) {
-    __nv_bfloat16* A = base + s * st_elems;
-    const int kv = tid % KV;
-    const int c = c0 + kv * 8;
+  __device__ void operator()(uint8_t* A, int chunk) const {
+    constexpr int KV = Cfg::KC / 8;  // units per halo pixel
+    static_assert(256 % KV == 0, "fixed channels per thread");
+    const int kv = threadIdx.x % KV;
+    const int c = chunk * Cfg::KC + kv * 8;
     float ga[8], gb[8], tv[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -183,157 +80,202 @@ __global__ void __launch_bounds__(NTHREADS, 2) conv_link_kernel(
       gb[k] = (flags & F_GN) ? rbf(beff[b * Cin + c + k]) : 0.0f;
       tv[k] = (flags & F_TE) ? __bfloat162float(te[b * Cin + c + k]) : 0.0f;
     }
-    for (int it = tid; it < 3 * (BM + 2) * KV; it += NTHREADS) {
-      const int p = (it / KV) % (BM + 2);
-      const int r = (it / KV) / (BM + 2);
-      const int hh = h + r - 1;
-      const int ww = w0 + p - 1;
-      if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-      const int dst = (r * (BM + 2) + p) * BK + kv * 8;
-      float v[8];
-      unpack8(*reinterpret_cast<const uint4*>(A + dst), v);
-      if (flags & F_GN) {
+    // U units per round: their loads (the add map's from global memory)
+    // are all issued before the first is used; the narrow tiles, at the
+    // registers of two blocks per SM, take one
+    constexpr int U = Cfg::MIN_BLOCKS == 1 ? 4 : 1;
+    constexpr int TOTAL = 3 * Cfg::HALO * KV;
+    for (int u0 = threadIdx.x; u0 < TOTAL; u0 += 256 * U) {
+      uint4 raw[U], araw[U];
+      uint32_t off[U];
+      bool ok[U];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = rbf(rbf(v[k] * ga[k]) + gb[k]);
-      }
-      if (flags & F_RELU) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] = fmaxf(v[k], 0.0f);
-      }
-      if (has_add) {
-        float av[8];
-        unpack8(*reinterpret_cast<const uint4*>(
-                    add + ((static_cast<size_t>(b) * H + hh) * W + ww) * Cin + c), av);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float t = (flags & F_TE) ? rbf(av[k] + tv[k]) : av[k];
-          v[k] = rbf(v[k] + t);
+      for (int k = 0; k < U; ++k) {
+        const int u = u0 + 256 * k;
+        const int row = u / KV;
+        const int hh = h + row / Cfg::HALO - 1;
+        const int ww = w0 + row % Cfg::HALO - 1;
+        ok[k] = u < TOTAL && hh >= 0 && hh < H && ww >= 0 && ww < W;
+        off[k] = swz<Cfg::RB>(row * Cfg::RB + kv * 16);
+        if (ok[k]) {
+          raw[k] = *reinterpret_cast<const uint4*>(A + off[k]);
+          if (flags & F_ADD)
+            araw[k] = *reinterpret_cast<const uint4*>(
+                add + ((static_cast<size_t>(b) * H + hh) * W + ww) * Cin + c);
         }
       }
-      *reinterpret_cast<uint4*>(A + dst) = pack8(v);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+      for (int k = 0; k < U; ++k) {
+        if (!ok[k]) continue;
+        float v[8];
+        unpack8(raw[k], v);
+        if (flags & F_GN) {
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int n_chunks = Cin / BK;
-  issue(0, 0);
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int s = ci & 1;
-    // the next chunk's copy runs while this chunk is transformed and multiplied
-    if (ci + 1 < n_chunks) {
-      issue((ci + 1) * BK, s ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (transform) {
-      apply_transform(ci * BK, s);
-      __syncthreads();
-    }
-    const __nv_bfloat16* A = base + s * st_elems;
-    const __nv_bfloat16* Bs = A + A_ELEMS;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dr = tap / 3;
-      const int dc = tap % 3;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bfr[FN];
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(bfr[j], Bs + (tap * BK + kk) * BN + wn * WN + j * 16, BN);
-#pragma unroll
-        for (int i = 0; i < FM; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> afr;
-          // output pixel m reads halo column m + dc of halo row dr
-          wmma::load_matrix_sync(afr, A + (dr * (BM + 2) + dc + wm * WM + i * 16) * BK + kk,
-                                 BK);
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], afr, bfr[j], acc[i][j]);
+          for (int e = 0; e < 8; ++e) v[e] = rbf(rbf(v[e] * ga[e]) + gb[e]);
         }
+        if (flags & F_RELU) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.0f);
+        }
+        if (flags & F_ADD) {
+          float av[8];
+          unpack8(araw[k], av);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float t = (flags & F_TE) ? rbf(av[e] + tv[e]) : av[e];
+            v[e] = rbf(v[e] + t);
+          }
+        }
+        *reinterpret_cast<uint4*>(A + off[k]) = pack8(v);
       }
     }
-    // the stage is refilled by the copy issued at the next iteration
-    __syncthreads();
   }
+};
 
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(Cs + (wm * WM + i * 16) * BN + wn * WN + j * 16,
-                              acc[i][j], BN, wmma::mem_row_major);
+struct NoFlip {
+  __device__ int operator()(int tap) const { return tap; }
+};
+
+template <int BN, int KC>
+__global__ void __launch_bounds__(384, (Conv3x3<BN, KC>::MIN_BLOCKS)) conv_link_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const float* __restrict__ bias, const float* __restrict__ aeff,
+    const float* __restrict__ beff, const __nv_bfloat16* __restrict__ add,
+    const __nv_bfloat16* __restrict__ te, __nv_bfloat16* __restrict__ y,
+    float* __restrict__ partials, int H, int W, int Cin, int Cout, int n_wtiles, int flags) {
+  using Cfg = Conv3x3<BN, KC>;
+  extern __shared__ uint8_t smem_raw[];
+  const Cfg pipe(smem_raw);
+  // the output-channel blocks of one row segment are neighbours in launch
+  // order, so they find its input in L2
+  const int nz = Cout / BN;
+  const int n0 = (blockIdx.x % nz) * BN;
+  const int seg = blockIdx.x / nz;
+  const int h = seg / n_wtiles;
+  const int w0 = (seg % n_wtiles) * Cfg::BM;
+  const int b = blockIdx.y;
+  const int n_chunks = Cin / KC;
+  const bool transform = flags & (F_GN | F_RELU | F_ADD);
+  LinkTransform<Cfg> tr{transform, aeff, beff, add, te, b, h, w0, H, W, Cin, flags};
+
+  if (threadIdx.x == 0) pipe.init();
   __syncthreads();
+  if (threadIdx.x >= 256) {  // the producer warpgroup
+    Cfg::producer_regs();
+    if (threadIdx.x == 256)
+      pipe.produce(&xmap, &wmap, b, h, w0, n0, n_chunks, NoFlip{});
+    return;
+  }
+  Cfg::consumer_regs();
 
-  const int n = tid % BN;
-  const int r0 = tid / BN;
-  const float bv = bias[n0 + n];
-  float s = 0.0f, q = 0.0f;
-  for (int m = r0; m < BM; m += RED_ROWS) {
-    const int ww = w0 + m;
-    if (ww < W) {
-      const float v = Cs[m * BN + n] + bv;
-      y[((static_cast<size_t>(b) * H + h) * W + ww) * Cout + n0 + n] = __float2bfloat16(v);
-      s += v;
-      q += v * v;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  pipe.consume(acc, n_chunks, tr);
+
+  // epilogue: bias, bf16 y, and the statistics of the f32 values
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m0 = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+  const bool stats = flags & F_STATS;
+  float* red = pipe.red();  // (2, 8 warps, BN) f32 over the halo stages
+  consumer_sync();          // every warp is done reading the stages
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = 8 * j + 2 * (lane & 3);
+    const float b0 = bias[n0 + n];
+    const float b1 = bias[n0 + n + 1];
+    float s0 = 0.0f, s1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ww = w0 + m0 + 8 * half;
+      if (ww < W) {
+        const float v0 = acc[4 * j + 2 * half] + b0;
+        const float v1 = acc[4 * j + 2 * half + 1] + b1;
+        *reinterpret_cast<__nv_bfloat162*>(
+            y + ((static_cast<size_t>(b) * H + h) * W + ww) * Cout + n0 + n) =
+            __floats2bfloat162_rn(v0, v1);
+        s0 += v0;
+        s1 += v1;
+        q0 += v0 * v0;
+        q1 += v1 * v1;
+      }
+    }
+    if (stats) {
+      warp_column_pair(red + warp * BN, n, s0, s1);
+      warp_column_pair(red + (8 + warp) * BN, n, q0, q1);
     }
   }
-  if (flags & F_STATS) {
-    red[0][r0][n] = s;
-    red[1][r0][n] = q;
-    __syncthreads();
-    if (tid < BN) {
-      float ss = 0.0f, qq = 0.0f;
-      for (int rr = 0; rr < RED_ROWS; ++rr) {
-        ss += red[0][rr][tid];
-        qq += red[1][rr][tid];
+  if (stats) {
+    consumer_sync();
+    for (int n = threadIdx.x; n < BN; n += 256) {
+      float s = 0.0f, q = 0.0f;
+      for (int wp = 0; wp < 8; ++wp) {
+        s += red[wp * BN + n];
+        q += red[(8 + wp) * BN + n];
       }
       const size_t blk = static_cast<size_t>(b) * H * n_wtiles + static_cast<size_t>(seg);
-      float* dst = partials + blk * 2 * Cout + n0 + tid;
-      dst[0] = ss;
-      dst[Cout] = qq;
+      float* dst = partials + blk * 2 * Cout + n0 + n;
+      dst[0] = s;
+      dst[Cout] = q;
     }
   }
 }
 
-template <int BN, int WARPS_M, int WARPS_N>
-int launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
-           const float* aeff, const float* beff, const __nv_bfloat16* add,
-           const __nv_bfloat16* te, __nv_bfloat16* y, float* partials, int B, int H,
-           int W, int Cin, int Cout, int flags, cudaStream_t s) {
-  auto kernel = conv_link_kernel<BN, WARPS_M, WARPS_N>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes<BN>()));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_wtiles = (W + BM - 1) / BM;
+template <int BN, int KC>
+int launch(const void* x, const void* wk, const float* bias, const float* aeff,
+           const float* beff, const __nv_bfloat16* add, const __nv_bfloat16* te,
+           __nv_bfloat16* y, float* partials, int B, int H, int W, int Cin, int Cout, int flags,
+           cudaStream_t s) {
+  using Cfg = Conv3x3<BN, KC>;
+  CUtensorMap xmap, wmap;
+  int err = encode_nhwc(&xmap, x, B, H, W, Cin, KC, Cfg::HALO, 3);
+  if (err != 0) return err;
+  err = encode_taps(&wmap, wk, Cout, Cin, KC, BN);
+  if (err != 0) return err;
+  auto kernel = conv_link_kernel<BN, KC>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(Cfg::SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_wtiles = (W + Cfg::BM - 1) / Cfg::BM;
   dim3 grid(n_wtiles * H * (Cout / BN), B);
-  kernel<<<grid, NTHREADS, smem_bytes<BN>(), s>>>(
-      x, w, bias, aeff, beff, add, te, y, partials, H, W, Cin, Cout, n_wtiles, flags);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, s>>>(xmap, wmap, bias, aeff, beff, add, te, y,
+                                                partials, H, W, Cin, Cout, n_wtiles, flags);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int KC>
+int launch_n(const void* x, const void* wk, const float* bias, const float* aeff,
+             const float* beff, const __nv_bfloat16* add, const __nv_bfloat16* te,
+             __nv_bfloat16* y, float* partials, int B, int H, int W, int Cin, int Cout,
+             int flags, cudaStream_t s) {
+  if (Cout % 256 == 0)
+    return launch<256, KC>(x, wk, bias, aeff, beff, add, te, y, partials, B, H, W, Cin, Cout,
+                           flags, s);
+  if (Cout % 64 == 0)
+    return launch<64, KC>(x, wk, bias, aeff, beff, add, te, y, partials, B, H, W, Cin, Cout,
+                          flags, s);
+  if (Cout == 16)
+    return launch<16, KC>(x, wk, bias, aeff, beff, add, te, y, partials, B, H, W, Cin, Cout,
+                          flags, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int conv_link_block_pixels() { return BM; }
+extern "C" int conv_link_block_pixels() { return Conv3x3<64, 64>::BM; }
 
-// x, add: (B, H, W, Cin) bf16; w: (3, 3, Cin, Cout) bf16; bias: (Cout,) f32;
-// aeff, beff: (B, Cin) f32; te: (B, Cin) bf16; y: (B, H, W, Cout) bf16;
-// partials: (B, H * ceil(W / BM), 2, Cout) f32. Unused pointers may be null
-// when their flag is off. Returns cudaGetLastError() after the launch.
-extern "C" int conv_link_launch(const void* x, const void* w, const void* bias,
-                                const void* aeff, const void* beff,
-                                const void* add, const void* te, void* y,
-                                void* partials, int B, int H, int W, int Cin,
-                                int Cout, int flags, void* stream) {
-  if (Cin % BK != 0 || B <= 0 || H <= 0 || W <= 0 || B > 65535) return cudaErrorInvalidValue;
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const __nv_bfloat16*>(w);
+// x, add: (B, H, W, Cin) bf16; wk: (3, 3, Cout, Cin) bf16, the link's
+// weights with K (Cin) contiguous; bias: (Cout,) f32; aeff, beff: (B, Cin)
+// f32; te: (B, Cin) bf16; y: (B, H, W, Cout) bf16; partials: (B, H *
+// ceil(W / 128), 2, Cout) f32. x and wk 16-byte aligned. Unused pointers
+// may be null when their flag is off. Returns cudaGetLastError() after the
+// launch, or an error of csrc/conv3x3_sm90.cuh's encode_map.
+extern "C" int conv_link_launch(const void* x, const void* wk, const void* bias,
+                                const void* aeff, const void* beff, const void* add,
+                                const void* te, void* y, void* partials, int B, int H, int W,
+                                int Cin, int Cout, int flags, void* stream) {
+  if (Cin % 16 != 0 || B <= 0 || H <= 0 || W <= 0 || B > 65535) return cudaErrorInvalidValue;
   const auto* bp = static_cast<const float*>(bias);
   const auto* ap = static_cast<const float*>(aeff);
   const auto* op = static_cast<const float*>(beff);
@@ -342,11 +284,7 @@ extern "C" int conv_link_launch(const void* x, const void* w, const void* bias,
   auto* yp = static_cast<__nv_bfloat16*>(y);
   auto* pp = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Cout % 128 == 0)
-    return launch<128, 2, 4>(xp, wp, bp, ap, op, dp, tp, yp, pp, B, H, W, Cin, Cout, flags, s);
-  if (Cout % 64 == 0)
-    return launch<64, 4, 2>(xp, wp, bp, ap, op, dp, tp, yp, pp, B, H, W, Cin, Cout, flags, s);
-  if (Cout == 16)
-    return launch<16, 8, 1>(xp, wp, bp, ap, op, dp, tp, yp, pp, B, H, W, Cin, Cout, flags, s);
-  return cudaErrorInvalidValue;
+  if (Cin % 64 == 0)
+    return launch_n<64>(x, wk, bp, ap, op, dp, tp, yp, pp, B, H, W, Cin, Cout, flags, s);
+  return launch_n<16>(x, wk, bp, ap, op, dp, tp, yp, pp, B, H, W, Cin, Cout, flags, s);
 }

@@ -141,6 +141,7 @@ def conv_link(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if te is not None:
         expect.append((te, (B, cin), BF16))
     native.check_tensors("conv_link", expect, x.device)
+    native.check_aligned("conv_link", x, w)
     lib_fn, bm = _conv_link_lib()
     n_blocks = H * ((W + bm - 1) // bm)
     y = torch.empty((B, H, W, cout), dtype=BF16, device=x.device)
@@ -149,8 +150,10 @@ def conv_link(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     flags = ((_F_GN if aeff is not None else 0) | (_F_RELU if relu else 0)
              | (_F_ADD if add is not None else 0) | (_F_TE if te is not None else 0)
              | (_F_STATS if stats else 0))
+    # the kernel reads the weights with K (Cin) contiguous: (3, 3, Cout, Cin)
+    wk = w.transpose(2, 3).contiguous()
     with torch.cuda.device(x.device):  # the launch goes to the current device
-        err = lib_fn(_ptr(x), _ptr(w), _ptr(bias), _ptr(aeff), _ptr(beff), _ptr(add),
+        err = lib_fn(_ptr(x), _ptr(wk), _ptr(bias), _ptr(aeff), _ptr(beff), _ptr(add),
                      _ptr(te), _ptr(y), _ptr(partials), B, H, W, cin, cout, flags,
                      torch.cuda.current_stream(x.device).cuda_stream)
     native.check(err, "conv_link")
@@ -401,19 +404,17 @@ def conv_link_bwd_plain(r, w, u_in, u_next=None, coef_next=None, coef_in=None,
 
 @functools.lru_cache(maxsize=None)
 def _conv_link_bwd_lib():
+    """(launch function, output pixels per data-gradient block, the
+    weight-gradient pass's number of pixel ranges as a function of
+    (B, H, W, Cin, Cout)) of csrc/conv_link_bwd.cu."""
     lib = native.load("conv_link_bwd")
     fn = lib.conv_link_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, lib.conv_link_bwd_block_pixels()
-
-
-def _weight_grad_splits(B: int, H: int, cin: int, cout: int) -> int:
-    """How many row ranges K5's weight-gradient pass splits the B*H image
-    rows into: about eight 128-thread blocks per SM of an H100 over the
-    9 taps x channel tiles, each range writing its own partial dW."""
-    tiles = 9 * (cin // (64 if cin % 64 == 0 else 16)) * (cout // (64 if cout % 64 == 0 else 16))
-    return max(1, min(B * H, -(-8 * 132 // tiles)))
+    splits = lib.conv_link_bwd_splits
+    splits.argtypes = [ctypes.c_int] * 5
+    splits.restype = ctypes.c_int
+    return fn, lib.conv_link_bwd_block_pixels(), splits
 
 
 def conv_link_bwd(r: torch.Tensor, w: torch.Tensor, u_in: torch.Tensor,
@@ -448,11 +449,10 @@ def conv_link_bwd(r: torch.Tensor, w: torch.Tensor, u_in: torch.Tensor,
     if te is not None:
         expect.append((te, (B, cin), BF16))
     native.check_tensors("conv_link_bwd", expect, r.device)
-    lib_fn, bm = _conv_link_bwd_lib()
+    native.check_aligned("conv_link_bwd", r, w, u_in)
+    lib_fn, bm, splits = _conv_link_bwd_lib()
     dev = r.device
-    # the data-gradient pass is K1's conv on du with the flipped, transposed weights
-    wt = w.flip(0, 1).transpose(2, 3).contiguous()
-    n_split = _weight_grad_splits(B, H, cin, cout)
+    n_split = splits(B, H, W, cin, cout)
     t_in = torch.empty((B, H, W, cin), dtype=BF16, device=dev)
     da = torch.empty_like(t_in) if add is not None else None
     ps = (torch.empty((B, H * ((W + bm - 1) // bm), 2, cin), dtype=torch.float32, device=dev)
@@ -468,7 +468,7 @@ def conv_link_bwd(r: torch.Tensor, w: torch.Tensor, u_in: torch.Tensor,
     flags = ((_B_GN_NEXT if u_next is not None else 0) | (_B_GN_IN if coef_in is not None else 0)
              | (_B_ADD if add is not None else 0) | (_B_TE if te is not None else 0))
     with torch.cuda.device(dev):
-        err = lib_fn(_ptr(r), _ptr(wt), _ptr(u_in), _ptr(u_next), _ptr(coef_next),
+        err = lib_fn(_ptr(r), _ptr(w), _ptr(u_in), _ptr(u_next), _ptr(coef_next),
                      _ptr(coef_in), _ptr(add), _ptr(te), _ptr(t_in), _ptr(da), _ptr(v),
                      _ptr(du), _ptr(ps), _ptr(dwp), _ptr(dbp), _ptr(dw), _ptr(db),
                      B, H, W, cin, cout, n_split, flags,

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``BUILD_DIR`` at first
-use (the file name carries a hash of the source, so an edited source is
-rebuilt) and loaded with ``ctypes``. Nothing here runs at import time: the
-CPU tests import every module of the package on a machine without ``nvcc``.
+use (the file name carries a hash of the source, the headers of ``csrc/``
+and the flags, so an edited source or header is rebuilt) and loaded with
+``ctypes``. Nothing here runs at import time: the CPU tests import every
+module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name. A wrapper adds one
 exactly where it launches its kernel; calls that take the plain PyTorch
@@ -83,9 +84,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path under ``BUILD_DIR``. Its name carries a hash of
+    the source, of every header of ``csrc/`` (a source may include any of
+    them) and of the compiler flags, so that an edit to any of them builds
+    a new library."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path) -> List[str]:
@@ -141,6 +148,13 @@ def check_tensors(kernel: str, expect, device) -> None:
             raise ValueError(f"{kernel}: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous() or t.device != device:
             raise ValueError(f"{kernel} inputs must be contiguous on one device")
+
+
+def check_aligned(kernel: str, *tensors) -> None:
+    """Raise unless each tensor's data starts on a 16-byte boundary, as the
+    TMA loads of the conv kernels need."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{kernel} inputs must start on a 16-byte boundary")
 
 
 def check(err: int, kernel: str) -> None:

@@ -25,19 +25,24 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("cin,cout,gn,add,w", [
-    (16, 64, False, False, 130), (64, 256, True, False, 37),
-    (256, 64, True, True, 129), (64, 16, True, False, 5)])
-def test_conv_link_matches_plain(dev, cin, cout, gn, add, w):
+# the six links of the chain (ne0, ne1, fa, fb, pr0, pr1), then ragged
+# shapes: W below one 128-pixel tile, one past a tile, H = 1, B = 3
+@pytest.mark.parametrize("cin,cout,gn,add,stats,B,H,w", [
+    (16, 64, False, False, True, 2, 6, 130), (64, 256, True, False, True, 2, 6, 37),
+    (256, 256, True, True, False, 2, 6, 129), (256, 256, False, False, False, 2, 6, 20),
+    (256, 64, False, False, True, 2, 6, 128), (64, 16, True, False, True, 2, 6, 5),
+    (256, 64, True, True, True, 2, 6, 129), (256, 256, True, True, True, 3, 1, 5),
+    (16, 64, False, False, True, 3, 1, 129), (64, 16, True, False, True, 3, 2, 257)])
+def test_conv_link_matches_plain(dev, cin, cout, gn, add, stats, B, H, w):
     """y within one bf16 step (1e-2 of the largest value), GroupNorm
-    partials summed over blocks to f32 order (1e-4)."""
+    partials summed over blocks to f32 order (1e-4); two launches give the
+    same bits."""
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
-    B, H = 2, 6
     x = torch.randn(B, H, w, cin, generator=g, device=dev).to(bf)
     wt = (torch.randn(3, 3, cin, cout, generator=g, device=dev) / (9 * cin) ** 0.5).to(bf)
     bias = torch.randn(cout, generator=g, device=dev) * 0.1
-    kw = {"stats": True}
+    kw = {"stats": stats}
     if gn:
         kw.update(aeff=1 + 0.1 * torch.randn(B, cin, generator=g, device=dev),
                   beff=0.1 * torch.randn(B, cin, generator=g, device=dev), relu=True)
@@ -46,12 +51,17 @@ def test_conv_link_matches_plain(dev, cin, cout, gn, add, w):
                   te=(0.1 * torch.randn(B, cin, generator=g, device=dev)).to(bf))
     n0 = LAUNCHES["conv_link"]
     y, ps = fd.conv_link(x, wt, bias, **kw)
+    y2, ps2 = fd.conv_link(x, wt, bias, **kw)
     yp, psp = fd.conv_link_plain(x, wt, bias, **kw)
     torch.cuda.synchronize()
-    assert LAUNCHES["conv_link"] == n0 + 1
+    assert LAUNCHES["conv_link"] == n0 + 2
+    assert torch.equal(y, y2)
     assert (y.float() - yp.float()).abs().max() <= 1e-2 * yp.float().abs().max()
-    s, sp = ps.sum(1), psp.sum(1)
-    assert (s - sp).abs().max() <= 1e-4 * sp.abs().max()
+    assert (ps is None) == (not stats)
+    if stats:
+        assert torch.equal(ps, ps2) and ps.shape == (B, H * -(-w // 128), 2, cout)
+        s, sp = ps.sum(1), psp.sum(1)
+        assert (s - sp).abs().max() <= 1e-4 * sp.abs().max()
 
 
 def test_ddim_step_matches_plain(dev):
@@ -130,18 +140,20 @@ def test_sched_bwd_matches_plain(dev, with_b):
     assert (s - sp).abs().max() <= 1e-4 * sp.abs().max()
 
 
-@pytest.mark.parametrize("cin,cout,gn_next,gn_in,add,w", [
-    (16, 64, True, False, False, 130), (64, 256, True, True, False, 37),
-    (256, 256, False, True, True, 129), (256, 256, False, False, False, 20),
-    (256, 64, True, False, False, 45), (64, 16, True, True, False, 5)])
-def test_conv_link_bwd_matches_plain(dev, cin, cout, gn_next, gn_in, add, w):
-    """K5 at the six kinds of link, ragged widths: t and d(add) within one
-    bf16 step of the largest value (1e-2), dW, dbias and the partials to
-    f32 summation order (1e-3 of the largest value); and two launches give
-    the same bits."""
+@pytest.mark.parametrize("cin,cout,gn_next,gn_in,add,B,H,w", [
+    (16, 64, True, False, False, 2, 6, 130), (64, 256, True, True, False, 2, 6, 37),
+    (256, 256, False, True, True, 2, 6, 129), (256, 256, False, False, False, 2, 6, 20),
+    (256, 64, True, False, False, 2, 6, 45), (64, 16, True, True, False, 2, 6, 5),
+    (256, 256, False, True, True, 3, 1, 5), (16, 64, True, False, False, 3, 2, 129),
+    (64, 16, True, True, False, 3, 1, 65), (64, 256, True, True, False, 3, 3, 128)])
+def test_conv_link_bwd_matches_plain(dev, cin, cout, gn_next, gn_in, add, B, H, w):
+    """K5 at the six kinds of link, then ragged shapes (W below a tile,
+    one past a tile, H = 1, B = 3): t and d(add) within one bf16 step of
+    the largest value (1e-2), dW, dbias and the partials to f32 summation
+    order (1e-3 of the largest value); and two launches give the same
+    bits."""
     g = torch.Generator(device=dev).manual_seed(5)
     bf = torch.bfloat16
-    B, H = 2, 6
     r = _rand(g, dev, B, H, w, cout, dtype=bf)
     wt = _rand(g, dev, 3, 3, cin, cout, scale=(9 * cin) ** -0.5, dtype=bf)
     u_in = _rand(g, dev, B, H, w, cin, dtype=bf)
