@@ -9,12 +9,15 @@ Phases, one JSON line each:
 1. env     - torch/CUDA versions; the card's name and power limit (also
              printed raw, as nvidia-smi gives them);
 2. build   - the CUDA kernels compiled with nvcc for sm_90a, one process
-             per source, all at once;
+             per source, all at once; -Xptxas -v of the attention kernels
+             (K4, K7, K8) by kernel, and the count of tensor-core, ldmatrix
+             and cp.async instructions in each library's SASS (cuobjdump);
 3. kernel  - every kernel against its plain PyTorch version at the
              flagship shapes, in bf16. Eval: the conv link (K1) at its six
              configurations on the (8, 176, 608) latent, the DDIM step (K3)
              on that latent, window attention (K4) at the four Swin-L
-             stages of a 352x1216 batch of 8, plain and shifted. Training:
+             stages of a 352x1216 batch of 8, plain and shifted, and again
+             at those of a 352x906 batch of 4 (training). Training:
              the scheduler step (K2) and its backward (K6) on the
              (4, 176, 453) latent, the conv-link backward (K5) at its six
              configurations there (run twice: the two results must be
@@ -76,6 +79,8 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -278,6 +283,26 @@ def main() -> int:
              for k, v in logs.items()}
     emit({"phase": "build", "seconds": secs, "sources": list(native.CUDA_SOURCES),
           "ptxas": ptxas})
+    # -Xptxas -v of the tensor-core attention kernels by kernel, and whether
+    # their SASS holds tensor-core (HMMA/HGMMA), ldmatrix and cp.async
+    # (LDGSTS) instructions
+    for src, log in logs.items():
+        if not src.startswith("window_attention"):
+            continue
+        entry = None
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif entry and ("registers" in ln or "spill" in ln):
+                print(f"ptxas {src} {entry}: {ln.split(':', 1)[-1].strip()}", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = {}
+        for src in native.CUDA_SOURCES:
+            text = subprocess.run([cuobjdump, "-sass", str(native._lib_path(src))],
+                                  capture_output=True, text=True).stdout
+            sass[src] = {op: text.count(op) for op in ("HMMA", "HGMMA", "LDSM", "LDGSTS")}
+        emit({"phase": "sass", "counts": sass})
     sync()
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -389,57 +414,65 @@ def main() -> int:
     sync()
 
     # ---- 3c. K4 window attention at the four Swin-L stages, bs8 352x1216
-    k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
-    for stage, (depth, heads, c) in enumerate(zip(SWIN_L["depths"], SWIN_L["heads"],
-                                                  SWIN_L["dims"])):
-        h_pad, w_pad, nw = swin_stage_windows(H_IMG, W_IMG, stage)
-        qkv = randn(B, nw, 49, 3 * c, dtype=bf)
-        bias = randn(heads, 49, 49, scale=0.1)
-        scale = (c // heads) ** -0.5
-        for shifted in (False, True):
-            mask = (torch.from_numpy(shifted_window_mask(h_pad, w_pad, 7, 3)).to(dev)
-                    if shifted else None)
-            out_k = window_attention(qkv, bias, mask, scale, heads)
-            out_p = window_attention_plain(qkv, bias, mask, scale, heads)
-            sync()
-            err = (out_k.float() - out_p.float()).abs().max().item()
-            # bf16 output and bf16 probabilities: a probability or the
-            # output may round to the neighbouring bf16 value
-            tol = 2e-2
-            check(math.isfinite(err) and err <= tol, f"window_attention s{stage}: {err}")
-            ms = cuda_ms(lambda: window_attention(qkv, bias, mask, scale, heads), iters)
-            plain_ms = cuda_ms(lambda: window_attention_plain(qkv, bias, mask, scale, heads),
-                               max(1, iters // 3), 1)
-            q, k, v = (t.reshape(B * nw, heads, 49, c // heads) for t in
-                       qkv.view(B, nw, 49, 3, heads, c // heads).permute(3, 0, 1, 4, 2, 5))
-            if mask is None:
-                amask = bias[None].to(bf)
-            else:
-                amask = (bias[None] + mask[:, None]).to(bf)
-                amask = amask.expand(B, nw, heads, 49, 49).reshape(B * nw, heads, 49, 49)
-            # SDPA as the median of warmed single calls: an event-timed
-            # loop read it unsteadily between runs
-            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=amask, scale=scale))
-            nbytes = qkv.numel() * 2 + B * nw * 49 * c * 2 + bias.numel() * 4 + (
-                mask.numel() * 4 if shifted else 0)
-            flops = 4.0 * B * nw * heads * 49 * 49 * (c // heads)
-            bms, by = bound(nbytes, flops, BF16_FLOPS)
-            emit({"phase": "kernel", "kernel": "window_attention", "stage": stage,
-                  "shifted": shifted, "shape": [B, nw, 49, 3 * c], "heads": heads,
-                  "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                  "gbps": nbytes / ms / 1e6})
-            reps = depth // 2  # half the blocks of a stage are shifted
-            k4["ms"] += reps * ms
-            k4["plain_ms"] += reps * plain_ms
-            k4["library_ms"] += reps * lib_ms
-            k4["bound_ms"] += reps * bms
-            k4["max_abs_err"] = max(k4["max_abs_err"], err)
-        del qkv, out_k, out_p
-    k4["bound_by"] = "bytes"
-    emit({"phase": "kernel", "kernel": "window_attention", "what": "one Swin-L pass", **k4})
-    summary["window_attention"] = k4
+    # (serve), then bs4 352x906 (one training micro-batch: 4 passes a step,
+    # the forward and its recompute for each of 2 micro-batches)
+    def k4_pass(bsz, h_img, w_img, what):
+        k4 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+        for stage, (depth, heads, c) in enumerate(zip(SWIN_L["depths"], SWIN_L["heads"],
+                                                      SWIN_L["dims"])):
+            h_pad, w_pad, nw = swin_stage_windows(h_img, w_img, stage)
+            qkv = randn(bsz, nw, 49, 3 * c, dtype=bf)
+            bias = randn(heads, 49, 49, scale=0.1)
+            scale = (c // heads) ** -0.5
+            for shifted in (False, True):
+                mask = (torch.from_numpy(shifted_window_mask(h_pad, w_pad, 7, 3)).to(dev)
+                        if shifted else None)
+                out_k = window_attention(qkv, bias, mask, scale, heads)
+                out_p = window_attention_plain(qkv, bias, mask, scale, heads)
+                sync()
+                err = (out_k.float() - out_p.float()).abs().max().item()
+                # bf16 output and bf16 probabilities: a probability or the
+                # output may round to the neighbouring bf16 value
+                tol = 2e-2
+                check(math.isfinite(err) and err <= tol, f"window_attention s{stage}: {err}")
+                ms = cuda_ms(lambda: window_attention(qkv, bias, mask, scale, heads), iters)
+                plain_ms = cuda_ms(lambda: window_attention_plain(qkv, bias, mask, scale, heads),
+                                   max(1, iters // 3), 1)
+                q, k, v = (t.reshape(bsz * nw, heads, 49, c // heads) for t in
+                           qkv.view(bsz, nw, 49, 3, heads, c // heads).permute(3, 0, 1, 4, 2, 5))
+                if mask is None:
+                    amask = bias[None].to(bf)
+                else:
+                    amask = (bias[None] + mask[:, None]).to(bf)
+                    amask = amask.expand(bsz, nw, heads, 49, 49).reshape(bsz * nw, heads, 49, 49)
+                # SDPA as the median of warmed single calls: an event-timed
+                # loop read it unsteadily between runs
+                lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=amask, scale=scale))
+                nbytes = qkv.numel() * 2 + bsz * nw * 49 * c * 2 + bias.numel() * 4 + (
+                    mask.numel() * 4 if shifted else 0)
+                flops = 4.0 * bsz * nw * heads * 49 * 49 * (c // heads)
+                bms, by = bound(nbytes, flops, BF16_FLOPS)
+                emit({"phase": "kernel", "kernel": "window_attention", "shapes": what,
+                      "stage": stage, "shifted": shifted, "shape": [bsz, nw, 49, 3 * c],
+                      "heads": heads, "max_abs_err": err, "tol": tol, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                      "bound_by": by, "gbps": nbytes / ms / 1e6})
+                reps = depth // 2  # half the blocks of a stage are shifted
+                k4["ms"] += reps * ms
+                k4["plain_ms"] += reps * plain_ms
+                k4["library_ms"] += reps * lib_ms
+                k4["bound_ms"] += reps * bms
+                k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            del qkv, out_k, out_p
+        k4["bound_by"] = "bytes"
+        emit({"phase": "kernel", "kernel": "window_attention", "shapes": what,
+              "what": "one Swin-L pass", **k4})
+        return k4
+
+    summary["window_attention"] = k4_pass(B, H_IMG, W_IMG, "serve")
+    k4_train = k4_pass(B_T // ACCUM, H_T, W_T, "train")
+    summary["window_attention"]["train_ms"] = k4_train["ms"]
     sync()
 
     # ---- 3d. K2 scheduler step and 3e. K6 its backward, on the training latent
@@ -1225,15 +1258,17 @@ def main() -> int:
     fd_py = "diffusiondepth_tpu/ops/fused_denoiser.py"
     wa_py = "diffusiondepth_tpu/ops/window_attention.py"
     ln_py = "diffusiondepth_tpu/ops/layernorm.py"
+    wa_sm90 = csrc + "window_attention_sm90.cuh"  # the bf16 tensor-core core of K4, K7, K8
     sources = {"conv_link": ("cuda", csrc + "conv_link.cu", fd_py + ":63", "serve"),
                "ddim_step": ("triton", csrc + "ddim_step.py", fd_py + ":1583", "serve"),
-               "window_attention": ("cuda", csrc + "window_attention.cu", wa_py + ":294", "serve"),
+               "window_attention": ("cuda", csrc + "window_attention.cu, " + wa_sm90, wa_py + ":294",
+                                    "serve"),
                "sched_step": ("triton", csrc + "ddim_step.py", fd_py + ":1271", "train"),
                "conv_link_bwd": ("cuda", csrc + "conv_link_bwd.cu", fd_py + ":732", "train"),
                "sched_bwd": ("triton", csrc + "sched_bwd.py", fd_py + ":1293", "train"),
-               "window_attention_bwd": ("cuda", csrc + "window_attention_bwd.cu",
+               "window_attention_bwd": ("cuda", csrc + "window_attention_bwd.cu, " + wa_sm90,
                                         wa_py + ":497", "train"),
-               "window_attention_split": ("cuda", csrc + "window_attention_split.cu",
+               "window_attention_split": ("cuda", csrc + "window_attention_split.cu, " + wa_sm90,
                                           wa_py + ":106", "serve-pallas"),
                "layernorm_fwd": ("triton", csrc + "layernorm.py", ln_py + ":52", "layernorm"),
                "layernorm_bwd": ("triton", csrc + "layernorm.py", ln_py + ":67", "layernorm")}
@@ -1243,7 +1278,7 @@ def main() -> int:
          "max_abs_err": summary[k]["max_abs_err"], "ms": summary[k]["ms"],
          "plain_ms": summary[k]["plain_ms"], "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"], "library_ms": summary[k]["library_ms"],
-         **({"event_ms": summary[k]["event_ms"]} if "event_ms" in summary[k] else {})}
+         **{x: summary[k][x] for x in ("event_ms", "train_ms") if x in summary[k]}}
         for k, src in sources.items()]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

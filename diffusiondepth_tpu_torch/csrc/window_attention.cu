@@ -17,15 +17,20 @@
 // far below the ~295 FLOP/byte ridge. At the Swin-L stage-1 eval shape
 // (bs8, 352x1216) one call reads ~258 MB of qkv and writes ~86 MB.
 //
-// What the design does about it: each input byte is read once. One block
+// bf16 (every model path): the tensor-core core of window_attention_sm90.cuh
+// (mma.sync m16n8k16, P kept in registers as the A operand of P.v, tiles
+// on a two-stage cp.async ring, each block walking a run of windows of one
+// head).
+//
+// f32 (the O0 policy and the f32 card tests): the FMA kernel below, exact
+// to f32 summation order (TF32 tensor cores would not meet 1e-5). One block
 // per (head, window, batch) stages its 49x32 q, k and v in shared memory
-// (rows padded to 33 floats, so the per-key dot products are free of bank
-// conflicts), one warp per query row computes the 49 logits two per lane,
-// reduces max and sum with shuffles, and writes its output row with one
-// coalesced 32-lane store. The relative-position bias and the shift mask
-// are shared by every batch and window and stay in L2. The arithmetic runs
-// on the FMA units: at 33 FLOP per byte they are not the limit. Requires
-// d = 32 (every Swin stage of this repo) and N <= 64.
+// (rows padded to 33 floats), one warp per query row computes the 49
+// logits two per lane, reduces max and sum with shuffles, and writes its
+// output row with one coalesced 32-lane store. Requires d = 32 (every Swin
+// stage of this repo) and N <= 64.
+
+#include "window_attention_sm90.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,17 +42,14 @@ constexpr int D = 32;
 constexpr int NMAX = 64;
 constexpr int NWARPS = 4;
 
+// the FMA kernel is instantiated for float only (bf16 runs the tensor-core
+// core), where these conversions are the identity
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // round to the input type and back
 template <typename T>
@@ -147,8 +149,12 @@ extern "C" int window_attention_launch(const void* qkv, const void* bias,
   if (C != heads * D || N > NMAX || N <= 0 || nW > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1)
-    return launch<__nv_bfloat16>(qkv, bias, mask, out, B, nW, N, C, heads, scale, s);
+  if (dtype_code == 1) {
+    const wa90::FusedLayout L{static_cast<const wa90::bf16*>(qkv), static_cast<wa90::bf16*>(out),
+                              nW, N, C};
+    return wa90::launch_fwd(L, static_cast<const float*>(bias), static_cast<const float*>(mask),
+                            B * nW, heads, scale, s);
+  }
   if (dtype_code == 0)
     return launch<float>(qkv, bias, mask, out, B, nW, N, C, heads, scale, s);
   return cudaErrorInvalidValue;

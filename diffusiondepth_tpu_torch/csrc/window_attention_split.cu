@@ -17,7 +17,8 @@
 // The shift mask stays f32 here. The JAX kernel casts it to the input type
 // first; its only values, 0 and -100, are exact in bf16, so the cast changes
 // nothing. The TPU kernel's padding of N = 49 to 56 and its -1e30 key mask
-// are layout for the TPU's (8, 128) tiles and are not carried over.
+// are layout for the TPU's (8, 128) tiles; the bf16 core pads to 64 rows
+// and keys for the tensor cores' tiles, with -inf on the padded keys.
 //
 // What bounds it on the H100: bytes. A head of a window does
 // 4*N*N*d = 307 kFLOP on 3*N*d inputs (9.4 KB in bf16): ~33 FLOP per byte,
@@ -25,15 +26,21 @@
 // eval batch (bs8, 352x1216) one call reads ~258 MB of q, k, v and writes
 // ~86 MB.
 //
-// What the design does about it: each input byte is read once. One block
-// per (head, window, batch) stages its 49x32 q, k and v in shared memory
-// (rows padded to 33 floats: conflict-free per-key access). Each lane then
-// keeps keys `lane` and `lane + 32` in registers, so a logit costs one
-// broadcast shared-memory load per two FMAs instead of K4's two loads per
-// FMA; one warp per query row reduces max and sum with shuffles and writes
-// its output row with one coalesced 32-lane store. The relative-position
-// bias and the shift mask are shared by every batch and window and stay in
-// L2. Requires d = 32 (every Swin stage of this repo) and N <= 64.
+// bf16: K4's tensor-core core (window_attention_sm90.cuh) with a loader
+// that reads each row of q, k and v through its own strides (multiples of
+// 8 elements, for the 16-byte cp.async chunks). The core sums in one order
+// whatever the layout, so K8 gives K4's bits on the same data.
+//
+// f32: the FMA kernel below, which sums in the order of K4's f32 kernel.
+// One block per (head, window, batch) stages its 49x32 q, k and v in shared
+// memory (rows padded to 33 floats: conflict-free per-key access). Each
+// lane then keeps keys `lane` and `lane + 32` in registers, so a logit
+// costs one broadcast shared-memory load per two FMAs; one warp per query
+// row reduces max and sum with shuffles and writes its output row with one
+// coalesced 32-lane store. Requires d = 32 (every Swin stage of this repo)
+// and N <= 64.
+
+#include "window_attention_sm90.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,21 +52,16 @@ constexpr int D = 32;
 constexpr int NMAX = 64;
 constexpr int NWARPS = 4;
 
-struct Strides {
-  long long b, w, h, n;
-};
+using wa90::Strides;
 
+// the FMA kernel is instantiated for float only (bf16 runs the tensor-core
+// core), where these conversions are the identity
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // round to the input type and back
 template <typename T>
@@ -177,10 +179,18 @@ extern "C" int window_attention_split_launch(
     int B, int nW, int H, int N, float scale, int dtype_code, void* stream) {
   if (N > NMAX || N <= 0 || H > 65535 || nW > 65535 || B > 65535)
     return cudaErrorInvalidValue;
+  // the bf16 loader's 16-byte chunks
+  if (dtype_code == 1 && ((qsb | qsw | qsh | qsn | ksb | ksw | ksh | ksn | vsb | vsw | vsh | vsn) & 7))
+    return cudaErrorInvalidValue;
   const Strides sq{qsb, qsw, qsh, qsn}, sk{ksb, ksw, ksh, ksn}, sv{vsb, vsw, vsh, vsn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1)
-    return launch<__nv_bfloat16>(q, k, v, bias, mask, out, sq, sk, sv, B, nW, H, N, scale, s);
+  if (dtype_code == 1) {
+    const wa90::SplitLayout L{{static_cast<const wa90::bf16*>(q), static_cast<const wa90::bf16*>(k),
+                               static_cast<const wa90::bf16*>(v)},
+                              {sq, sk, sv}, static_cast<wa90::bf16*>(out), nW, N, H};
+    return wa90::launch_fwd(L, static_cast<const float*>(bias), static_cast<const float*>(mask),
+                            B * nW, H, scale, s);
+  }
   if (dtype_code == 0)
     return launch<float>(q, k, v, bias, mask, out, sq, sk, sv, B, nW, H, N, scale, s);
   return cudaErrorInvalidValue;

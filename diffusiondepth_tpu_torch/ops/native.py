@@ -152,7 +152,8 @@ def check_tensors(kernel: str, expect, device) -> None:
 
 def check_aligned(kernel: str, *tensors) -> None:
     """Raise unless each tensor's data starts on a 16-byte boundary, as the
-    TMA loads of the conv kernels need."""
+    TMA loads of the conv kernels and the 16-byte cp.async rows of the bf16
+    attention kernels need."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{kernel} inputs must start on a 16-byte boundary")
 

@@ -7,7 +7,9 @@ and ``window_attention_qkv_bwd_pallas``, kernels
 ``_qkv_bwd_kernel_masked/_nomask``). ``window_attention`` launches the CUDA
 kernel ``csrc/window_attention.cu`` (K4) and ``window_attention_bwd`` the
 kernel ``csrc/window_attention_bwd.cu`` (K7) on a CUDA tensor; both run
-their plain versions on a CPU tensor. ``WindowAttentionQKV`` is the
+their plain versions on a CPU tensor. In bf16 both run on the tensor-core
+core of ``csrc/window_attention_sm90.cuh``; in f32 on FMA kernels exact to
+f32 summation order. ``WindowAttentionQKV`` is the
 ``torch.autograd.Function`` the Swin blocks call.
 
 ``window_attention_split`` is the port of the v2 attention on split q/k/v
@@ -29,6 +31,11 @@ from . import native
 
 HEAD_DIM = 32
 MAX_TOKENS = 64
+# K7's bf16 grid: the H100 SXM's SMs times the blocks its __launch_bounds__
+# keeps resident on each. Constants, not the card's answer, so that the
+# dbias partition is a pure function of the shapes.
+BWD_SMS = 132
+BWD_BLOCKS_PER_SM = 4
 
 
 def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -103,6 +110,8 @@ def _check(qkv, bias, mask, num_heads, dout=None):
     for t in (qkv, bias, mask, dout):
         if t is not None and (not t.is_contiguous() or t.device != qkv.device):
             raise ValueError("qkv, bias, mask and dout must be contiguous on one device")
+    if qkv.dtype == torch.bfloat16:  # the tensor-core kernels' 16-byte cp.async rows
+        native.check_aligned("window attention", *(t for t in (qkv, dout) if t is not None))
 
 
 @functools.lru_cache(maxsize=None)
@@ -172,10 +181,22 @@ def window_attention_bwd_plain(qkv: torch.Tensor, bias: torch.Tensor,
     return dqkv, ds.sum((0, 1))
 
 
+def window_attention_bwd_splits(b: int, nw: int, heads: int) -> int:
+    """Blocks per head of K7's bf16 kernel, and so its dbias partials: enough
+    blocks over all heads to fill the card's resident slots once
+    (``BWD_SMS * BWD_BLOCKS_PER_SM``), at most one per window. A pure
+    function of the shapes: the wrapper sizes ``part`` (splits, heads, N, N)
+    with it and passes it to the kernel, whose block s of each head walks
+    windows (index b * nW + w) [s n / S, (s + 1) n / S) of the n = b * nW,
+    in order, summing dS into its partial s; the partials are then summed
+    in the order of s."""
+    return max(1, min(b * nw, -(-BWD_SMS * BWD_BLOCKS_PER_SM // heads)))
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_launch_fn():
     fn = native.load("window_attention_bwd").window_attention_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -186,22 +207,26 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                          scale: float, num_heads: int):
     """(dqkv, dbias) of ``window_attention``: the CUDA kernel
     ``csrc/window_attention_bwd.cu`` on the card, the plain version for a
-    CPU tensor. dbias is reduced from per-window partials in a fixed
-    order, so two launches on the same inputs give the same bits."""
+    CPU tensor. dbias is reduced from per-block partials (bf16: one per
+    ``window_attention_bwd_splits`` block of each head; f32: one per
+    window) in a fixed order, so two launches on the same inputs give the
+    same bits."""
     native.no_autograd("window_attention_bwd", qkv, bias, mask, dout)
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, bias, mask, dout, scale, num_heads)
     _check(qkv, bias, mask, num_heads, dout)
     b, nw, n, c3 = qkv.shape
     dqkv = torch.empty_like(qkv)
-    part = torch.empty((nw, num_heads, n, n), dtype=torch.float32, device=qkv.device)
+    bf16 = qkv.dtype == torch.bfloat16
+    splits = window_attention_bwd_splits(b, nw, num_heads) if bf16 else nw
+    part = torch.empty((splits, num_heads, n, n), dtype=torch.float32, device=qkv.device)
     dbias = torch.empty((num_heads, n, n), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _bwd_launch_fn()(qkv.data_ptr(), bias.data_ptr(),
                                mask.data_ptr() if mask is not None else None,
                                dout.data_ptr(), dqkv.data_ptr(), part.data_ptr(),
-                               dbias.data_ptr(), b, nw, n, c3 // 3, num_heads, float(scale),
-                               1 if qkv.dtype == torch.bfloat16 else 0,
+                               dbias.data_ptr(), b, nw, n, c3 // 3, num_heads, splits,
+                               float(scale), 1 if bf16 else 0,
                                torch.cuda.current_stream(qkv.device).cuda_stream)
     native.check(err, "window_attention_bwd")
     native.LAUNCHES["window_attention_bwd"] += 1
@@ -270,6 +295,10 @@ def _check_split(q, k, v, bias, mask):
     for t in (bias, mask):
         if t is not None and (not t.is_contiguous() or t.device != q.device):
             raise ValueError("bias and mask must be contiguous on q's device")
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel's 16-byte cp.async rows
+        native.check_aligned("window_attention_split", q, k, v)
+        if any(s % 8 for t in (q, k, v) for s in t.stride()[:4]):
+            raise ValueError("bf16 q, k and v need strides that are multiples of 8 elements")
 
 
 @functools.lru_cache(maxsize=None)

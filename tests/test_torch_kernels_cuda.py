@@ -91,6 +91,20 @@ def test_window_attention_matches_plain(dev, dtype, masked):
     assert (out.float() - ref.float()).abs().max() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_attention_repeatable(dev, dtype):
+    """K4: two launches on the same inputs give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    nw, heads = 6, 3
+    qkv = _rand(g, dev, 2, nw, 49, 3 * 32 * heads, dtype=dtype)
+    bias = _rand(g, dev, heads, 49, 49, scale=0.1)
+    mask = torch.from_numpy(shifted_window_mask(14, 21, 7, 3)).to(dev)
+    out = wa.window_attention(qkv, bias, mask, 32 ** -0.5, heads)
+    again = wa.window_attention(qkv, bias, mask, 32 ** -0.5, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
 def _rand(g, dev, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
@@ -232,6 +246,46 @@ def test_window_attention_split_matches_plain_and_k4(dev, dtype, masked, strided
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     assert (out.float() - ref.float()).abs().max() <= tol
     assert torch.equal(out.permute(0, 1, 3, 2, 4).reshape(k4.shape), k4)
+
+
+# bf16 tile edges of the tensor-core K4/K7/K8: windows not a multiple of
+# the windows per block (27 over 11 blocks of a head at 48 heads; 600 over
+# 528 at one head), B = 1, heads 1 and 48, N = 64 (no padded key) and
+# N = 16 (three query warps wholly padded)
+@pytest.mark.parametrize("B,nw,heads,n,masked", [
+    (3, 9, 48, 49, True), (1, 600, 1, 49, False), (2, 5, 3, 64, True), (2, 5, 3, 16, False),
+    (1, 3, 2, 49, True)])
+def test_window_attention_bf16_tile_edges(dev, B, nw, heads, n, masked):
+    """K4 and K8 within one output step of the plain version (2e-2), K8 with
+    K4's bits, K7's dqkv within 2e-2 of the largest value and dbias within
+    1e-4; two launches of K4 and of K7 give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    qkv = _rand(g, dev, B, nw, n, 3 * 32 * heads, dtype=bf)
+    dout = _rand(g, dev, B, nw, n, 32 * heads, dtype=bf)
+    bias = _rand(g, dev, heads, n, n, scale=0.1)
+    mask = None
+    if masked:
+        mask = -100.0 * (torch.rand(nw, n, n, generator=g, device=dev) < 0.3).float()
+    scale = 32 ** -0.5
+    n0 = dict(LAUNCHES)
+    out = wa.window_attention(qkv, bias, mask, scale, heads)
+    out2 = wa.window_attention(qkv, bias, mask, scale, heads)
+    ref = wa.window_attention_plain(qkv, bias, mask, scale, heads)
+    q, k, v = (t.permute(0, 1, 3, 2, 4) for t in qkv.view(B, nw, n, 3, heads, 32).unbind(3))
+    out8 = wa.window_attention_split(q, k, v, bias, mask, scale)
+    dq, db = wa.window_attention_bwd(qkv, bias, mask, dout, scale, heads)
+    dq2, db2 = wa.window_attention_bwd(qkv, bias, mask, dout, scale, heads)
+    rq, rb = wa.window_attention_bwd_plain(qkv, bias, mask, dout, scale, heads)
+    torch.cuda.synchronize()
+    assert LAUNCHES["window_attention"] == n0["window_attention"] + 2
+    assert LAUNCHES["window_attention_bwd"] == n0["window_attention_bwd"] + 2
+    assert torch.equal(out, out2)
+    assert (out.float() - ref.float()).abs().max() <= 2e-2
+    assert torch.equal(out8.permute(0, 1, 3, 2, 4).reshape(out.shape), out)
+    assert torch.equal(dq, dq2) and torch.equal(db, db2)
+    assert (dq.float() - rq.float()).abs().max() <= 2e-2 * rq.float().abs().max()
+    assert (db - rb).abs().max() <= 1e-4 * rb.abs().max()
 
 
 @pytest.mark.parametrize("m,c", [(300, 192), (129, 384), (37, 3072), (1001, 768)])
