@@ -62,6 +62,9 @@ class Config:
     fused_window_attention: bool = True
     # rematerialise each Swin block in the training backward
     remat_backbone: bool = True
+    # the denoiser takes the fused conv chain (K1/K5) where its guard holds
+    # ('upsample_add', bf16, latent height % 8 == 0)
+    fused_denoiser: bool = True
 
     def finalize(self) -> "Config":
         if self.dtype is None:

@@ -33,9 +33,9 @@ def _dt(dtype: Optional[torch.dtype], *ts: torch.Tensor) -> torch.dtype:
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                 stride: int = 1, padding: int = 0,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None, groups: int = 1) -> torch.Tensor:
     dt = _dt(dtype, x, weight)
-    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), weight.to(dt), None, stride, padding)
+    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), weight.to(dt), None, stride, padding, 1, groups)
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.to(dt)
@@ -90,8 +90,11 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        if self.training:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                running: bool = False) -> torch.Tensor:
+        """``running=True`` normalises with the running statistics in
+        training mode too (flax's ``use_running_average``)."""
+        if self.training and not running:
             xf = x.float()
             axes = tuple(range(xf.ndim - 1))
             mean = xf.mean(axes)

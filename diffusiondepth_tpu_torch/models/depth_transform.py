@@ -42,9 +42,11 @@ class DeepDepthTransformWithUpsampling(nn.Module):
     def t(self, depth: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.conv_transform[1](self.conv_transform[0](depth)))
 
-    def inv_t(self, value: torch.Tensor) -> torch.Tensor:
+    def inv_t(self, value: torch.Tensor, running: bool = False) -> torch.Tensor:
+        """``running=True``: the BatchNorm uses its running statistics in
+        training mode too."""
         deconv, bn, _, out = self.conv_inv_transform
         x = conv_transpose2d_nhwc(value, deconv.weight, deconv.bias, 2, 1, 0, self.dtype)
-        x = F.relu(bn(x, self.dtype))
+        x = F.relu(bn(x, self.dtype, running))
         x = conv2d_nhwc(x, out[0].weight, out[0].bias, 1, 1, self.dtype)
         return 1.0 / torch.clamp(torch.sigmoid(x).float(), min=self.eps) - 1.0

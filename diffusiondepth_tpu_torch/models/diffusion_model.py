@@ -1,5 +1,10 @@
 """Composed DiffusionDepth model, backbone + DDIM head (port of
 ``diffusiondepth_tpu/models/diffusion_model.py`` for ``Diffusion_DCbase_``).
+
+Three backbone families are ported: ``mmbev_resnet`` (``mmbev_res18/50/101``,
+default head ``DDIMDepthEstimate_Res``), ``swin`` (every Swin name, default
+``DDIMDepthEstimate_Swin_ADDHAHI``) and ``mpvit`` (``mpvit_tiny`` ..
+``mpvit_base``, default ``DDIMDepthEstimate_MPVIT_ADDHAHI``).
 """
 
 from __future__ import annotations
@@ -11,28 +16,43 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..registry import BACKBONES, HEADS
-from .backbones import swin  # noqa: F401  (registers the Swin backbones)
+from .backbones import mmbev_resnet, mpvit, swin  # noqa: F401  (register the backbones)
 from .heads import ddim_head  # noqa: F401  (registers the heads)
 
-_DEFAULT_HEAD = {"swin": "DDIMDepthEstimate_Swin_ADDHAHI"}
+# the default head of each backbone module when head_specify is not given
+_DEFAULT_HEAD = {
+    "mmbev_resnet": "DDIMDepthEstimate_Res",
+    "swin": "DDIMDepthEstimate_Swin_ADDHAHI",
+    "mpvit": "DDIMDepthEstimate_MPVIT_ADDHAHI",
+}
 
 
 class Diffusion_DCbase_Model(nn.Module):
-    def __init__(self, backbone_name: str,
-                 head_name: str = "DDIMDepthEstimate_Swin_ADDHAHI",
+    def __init__(self, backbone_name: str = "mmbev_res18",
+                 backbone_module: str = "mmbev_resnet",
+                 head_name: str = "DDIMDepthEstimate_Res",
                  inference_steps: int = 20, num_train_timesteps: int = 1000,
                  timestep_schedule: str = "uniform",
                  head_in_channels: Optional[Sequence[int]] = None,
                  use_pallas: bool = False, fused_window_attention: bool = True,
-                 remat_backbone: bool = True, dtype: Optional[torch.dtype] = None):
+                 remat_backbone: bool = True, use_fused_denoiser: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        """Only a Swin backbone takes ``use_pallas``,
+        ``fused_window_attention`` and ``remat_backbone``."""
         super().__init__()
-        self.depth_backbone = BACKBONES.get(backbone_name)(
-            dtype=dtype, use_pallas=use_pallas, remat=remat_backbone,
-            fused_qkv_attention=fused_window_attention)
+        if backbone_module not in _DEFAULT_HEAD:
+            raise ValueError(f"unknown backbone_module {backbone_module!r}; "
+                             f"ported: {sorted(_DEFAULT_HEAD)}")
+        bb_kwargs = {}
+        if backbone_module == "swin":
+            bb_kwargs = dict(use_pallas=use_pallas, remat=remat_backbone,
+                             fused_qkv_attention=fused_window_attention)
+        self.depth_backbone = BACKBONES.get(backbone_name)(dtype=dtype, **bb_kwargs)
         self.depth_head = HEADS.get(head_name)(
             in_channels=head_in_channels, inference_steps=inference_steps,
             num_train_timesteps=num_train_timesteps,
-            timestep_schedule=timestep_schedule, dtype=dtype)
+            timestep_schedule=timestep_schedule, use_fused_denoiser=use_fused_denoiser,
+            dtype=dtype)
 
     def forward(self, sample: Dict[str, torch.Tensor],
                 init_latent: Optional[torch.Tensor] = None,
@@ -52,14 +72,17 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> Diffusion
     """The model of ``cfg`` with weights drawn from ``cfg.seed``, on the
     card unless ``device="cpu"``; in eval mode. ``cfg.use_pallas``,
     ``cfg.fused_window_attention`` and ``cfg.remat_backbone`` choose the
-    Swin backbone's attention route and block rematerialisation."""
+    Swin backbone's attention route and block rematerialisation;
+    ``cfg.fused_denoiser`` lets the denoiser take the fused chain where its
+    guard holds."""
     dev = resolve_device(device)
     if cfg.model_name != "Diffusion_DCbase_":
         raise NotImplementedError(
             f"model_name {cfg.model_name!r} is not ported yet (ROADMAP Queue 1)")
     if cfg.backbone_module not in _DEFAULT_HEAD:
         raise NotImplementedError(
-            f"backbone_module {cfg.backbone_module!r} is not ported yet (ROADMAP Queue 1)")
+            f"backbone_module {cfg.backbone_module!r} is not ported; "
+            f"ported: {sorted(_DEFAULT_HEAD)}")
     head = cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module]
     hic = cfg.head_in_channels
     if isinstance(hic, str):
@@ -68,6 +91,7 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> Diffusion
         torch.manual_seed(cfg.seed)
         model = Diffusion_DCbase_Model(
             backbone_name=cfg.backbone_name,
+            backbone_module=cfg.backbone_module,
             head_name=head,
             inference_steps=cfg.inference_steps,
             num_train_timesteps=cfg.num_train_timesteps,
@@ -76,6 +100,7 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> Diffusion
             use_pallas=cfg.use_pallas and cfg.backbone_module == "swin",
             fused_window_attention=cfg.fused_window_attention,
             remat_backbone=cfg.remat_backbone,
+            use_fused_denoiser=cfg.fused_denoiser,
             dtype=cfg.compute_dtype if cfg.dtype == "bfloat16" else None,
         )
     return model.eval()

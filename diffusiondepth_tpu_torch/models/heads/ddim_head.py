@@ -8,14 +8,20 @@
    no host synchronisation per step;
 5. ``inv_t`` decodes the latent to metric depth.
 
-Under the bf16 policy each eval step is the fused denoiser chain (six
+Where the denoiser's ``fused_active`` holds (the 'upsample_add' heads under
+the bf16 policy) each eval step is the fused denoiser chain (six
 conv-link kernels) and one DDIM-step kernel, the counterpart of the JAX
 eval path's grouped-flat branch; each training step is one
 ``FusedSamplerStep`` on the (f32, bf16) latent pair, the counterpart of
 the JAX training branch (``fused_sampler_step``), and gradients flow back
-through all steps. In f32 each step is the module denoiser and
-``DDIMSchedule.step_from_alphas``, the JAX jnp path. The latent and all
-scheduler math stay f32.
+through all steps. Elsewhere (f32, the 'add' heads, ``use_fused_denoiser``
+off, a latent height not a multiple of 8) each step is the module denoiser
+and ``DDIMSchedule.step_from_alphas``, the JAX jnp path. The latent and
+all scheduler math stay f32.
+
+The ``vis`` heads also return ``pred_inter`` (steps, B, H, W, 1): every
+step's latent decoded by ``inv_t`` in one batched call, with the running
+BatchNorm statistics, as the JAX head decodes them.
 
 In training mode the head also computes the self-diffusion ``ddim_loss``:
 noise added to its own refined latent at a random timestep per sample,
@@ -24,7 +30,7 @@ regressed by one denoiser call.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -39,24 +45,31 @@ from .denoiser import ScheduledCNNRefine
 
 
 class DDIMDepthEstimateHead(nn.Module):
-    """The Swin heads' shared body: Swin-L pyramid channels by default,
-    'upsample_add' denoiser fusion, ``DeepDepthTransformWithUpsampling``."""
+    """The heads' shared body, ``DeepDepthTransformWithUpsampling``; each
+    registered head sets its pyramid channels, denoiser fusion, HAHI neck
+    and ``vis``. The defaults are the JAX head's: the ResNet pyramid and
+    'add'."""
 
+    in_channels: Sequence[int] = (64, 128, 256, 512)
+    fuse: str = "add"
     use_hahi: bool = False
+    vis: bool = False
 
     def __init__(self, in_channels: Optional[Sequence[int]] = None, fpn_dim: int = 256,
                  depth_feature_dim: int = 16, inference_steps: int = 20,
                  num_train_timesteps: int = 1000, hahi_embedding_dim: int = 512,
-                 timestep_schedule: str = "uniform", dtype: Optional[torch.dtype] = None):
+                 timestep_schedule: str = "uniform", use_fused_denoiser: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        in_channels = tuple(in_channels or (192, 384, 768, 1536))
+        in_channels = tuple(in_channels or self.in_channels)
         self.depth_feature_dim = depth_feature_dim
         self.inference_steps = inference_steps
         self.timestep_schedule = timestep_schedule
         self.dtype = dtype
         self.depth_transform = DeepDepthTransformWithUpsampling(
             hidden=depth_feature_dim, eps=1e-6, dtype=dtype)
-        self.model = ScheduledCNNRefine(fpn_dim, depth_feature_dim, dtype=dtype)
+        self.model = ScheduledCNNRefine(fpn_dim, depth_feature_dim, fuse=self.fuse,
+                                        use_fused=use_fused_denoiser, dtype=dtype)
         self.schedule = DDIMSchedule(num_train_timesteps=num_train_timesteps,
                                      clip_sample=False)
         if self.use_hahi:
@@ -83,8 +96,11 @@ class DDIMDepthEstimateHead(nn.Module):
 
     def _sample(self, cond_latent: torch.Tensor, latent_shape,
                 generator: Optional[torch.Generator] = None,
-                init_latent: Optional[torch.Tensor] = None) -> torch.Tensor:
+                init_latent: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
+        """The refined latent and, for a ``vis`` head, each step's latent."""
         dev = cond_latent.device
+        traj = [] if self.vis else None
         ts = (self.schedule.biased_timesteps(self.inference_steps)
               if self.timestep_schedule == "biased" else None)
         tables = self.schedule.inference_tables(self.inference_steps, ts)
@@ -95,7 +111,7 @@ class DDIMDepthEstimateHead(nn.Module):
             x = torch.randn(latent_shape, generator=generator, device=dev,
                             dtype=torch.float32)
 
-        if self.model.fused_active():  # epsilon prediction, no clipping
+        if self.model.fused_active(latent_shape[1]):  # epsilon prediction, no clipping
             sched = torch.from_numpy(tables.sched()).to(dev)
             cond = cond_latent.to(torch.bfloat16).contiguous()
             te_all = self.model.time_embed(timesteps)  # (steps, C) bf16
@@ -106,13 +122,17 @@ class DDIMDepthEstimateHead(nn.Module):
                 for i in range(len(tables.timesteps)):
                     te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
                     x, xb = FusedSamplerStep.apply(x, xb, cond, te_b, sched[i], *flat)
-                return x
+                    if traj is not None:
+                        traj.append(x)
+                return x, traj
             params = self.model.chain_params()
             for i in range(len(tables.timesteps)):
                 te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
                 u6, a3, b3 = denoiser_chain(params, x.to(torch.bfloat16), cond, te_b)
                 x = ddim_step(u6, a3, b3, x, sched[i])
-            return x
+                if traj is not None:
+                    traj.append(x)
+            return x, traj
 
         a_t = torch.from_numpy(tables.alpha_prod_t).to(dev)
         a_prev = torch.from_numpy(tables.alpha_prod_prev).to(dev)
@@ -120,7 +140,9 @@ class DDIMDepthEstimateHead(nn.Module):
             eps = self.model(x, timesteps[i], cond_latent).float()
             x, _ = self.schedule.step_from_alphas(eps, x, a_t[i], a_prev[i], eta=0.0,
                                                   use_clipped_model_output=True)
-        return x
+            if traj is not None:
+                traj.append(x)
+        return x, traj
 
     def _ddim_loss(self, refined_latent: torch.Tensor, cond_latent: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -153,8 +175,14 @@ class DDIMDepthEstimateHead(nn.Module):
         cond_latent = self.model.upsample_condition(cond, gt_map_t.shape[1:3])
         latent_shape = (gt_map_t.shape[0], gt_map_t.shape[1], gt_map_t.shape[2],
                         self.depth_feature_dim)
-        refined = self._sample(cond_latent, latent_shape, generator, init_latent)
+        refined, traj = self._sample(cond_latent, latent_shape, generator, init_latent)
         pred = self.depth_transform.inv_t(refined)
+        pred_inter = None
+        if traj is not None:  # every step's latent decoded in one batched call
+            n, b = len(traj), traj[0].shape[0]
+            flat = torch.stack(traj).flatten(0, 1)
+            pred_inter = self.depth_transform.inv_t(flat, running=True)
+            pred_inter = pred_inter.reshape(n, b, *pred_inter.shape[1:])
         return {
             "pred": pred,
             "pred_init": gt_map_t,
@@ -163,7 +191,7 @@ class DDIMDepthEstimateHead(nn.Module):
                           if self.training else None),
             "gt_map_t": gt_map_t,
             "pred_uncertainty": None,
-            "pred_inter": None,
+            "pred_inter": pred_inter,
             "weight_map": None,
             "guidance": None,
             "offset": None,
@@ -174,12 +202,43 @@ class DDIMDepthEstimateHead(nn.Module):
 
 
 @HEADS.register()
+class DDIMDepthEstimate_Res(DDIMDepthEstimateHead):
+    """ResNet pyramid; the condition map is at latent resolution, 'add'."""
+
+
+@HEADS.register()
+class DDIMDepthEstimate_ResVis(DDIMDepthEstimate_Res):
+    """The Res head returning every step's decoded depth."""
+
+    vis = True
+
+
+@HEADS.register()
 class DDIMDepthEstimate_Swin_ADD(DDIMDepthEstimateHead):
     """Swin-L pyramid; upsample-add fusion."""
+
+    in_channels = (192, 384, 768, 1536)
+    fuse = "upsample_add"
 
 
 @HEADS.register()
 class DDIMDepthEstimate_Swin_ADDHAHI(DDIMDepthEstimate_Swin_ADD):
     """Swin-L + HAHI neck (conv path)."""
 
+    use_hahi = True
+
+
+@HEADS.register()
+class DDIMDepthEstimate_Swin_ADDHAHIVis(DDIMDepthEstimate_Swin_ADDHAHI):
+    """The Swin-L + HAHI head returning every step's decoded depth."""
+
+    vis = True
+
+
+@HEADS.register()
+class DDIMDepthEstimate_MPVIT_ADDHAHI(DDIMDepthEstimateHead):
+    """MPViT-small pyramid + HAHI neck (conv path); upsample-add fusion."""
+
+    in_channels = (128, 216, 288, 288)
+    fuse = "upsample_add"
     use_hahi = True

@@ -2,16 +2,22 @@
 ``diffusiondepth_tpu/models/heads/denoiser.py``).
 
 noise embedding conv(16->64) GN(4) ReLU conv(64->C) GN(4) ReLU; timestep
-embedding table Embed(1280, C); 'upsample_add' fusion by two plain 3x3
-convs; predictor conv(C->64) GN(4) ReLU conv(64->16) GN(4) ReLU. The
+embedding table Embed(1280, C); the fusion of condition and noise
+embedding; predictor conv(C->64) GN(4) ReLU conv(64->16) GN(4) ReLU. The
 condition map comes in already at latent resolution (``upsample_condition``
-runs once, outside the sampling loop).
+runs once, outside the sampling loop). Two fusions are ported:
 
-Under the bf16 policy the six convs run as the fused chain of
+* ``'add'`` (the ResNet heads): condition + timestep + noise embedding;
+* ``'upsample_add'`` (the Swin and MPViT heads): the same sum through two
+  plain 3x3 convs, ``upsample_add.convA/convB``, built only for it.
+
+``fused_active(latent_h)`` holds exactly where the JAX package's does
+(``use_fused``, ``'upsample_add'``, the bf16 policy, ``latent_h % 8 ==
+0``); there the six convs run as the fused chain of
 ``ops/fused_denoiser.py`` (kernel K1 on the card, ``FusedDenoiser``: its
-backward is kernel K5), as the JAX package's fused Pallas chain does; in
-f32 the module path below runs, which is the JAX package's jnp path. Only the 'upsample_add' fusion of the Swin heads
-is ported ('add' and 'upsample_concat' wait, ROADMAP M4).
+backward is kernel K5). Everywhere else the module path below runs, the
+JAX package's jnp path: on the card its convolutions are cuDNN's. The
+``'upsample_concat'`` fusion of the bins heads is not ported and raises.
 """
 
 from __future__ import annotations
@@ -44,25 +50,38 @@ class _Conv(nn.Module):
         self.conv = nn.Conv2d(c, c, 3, 1, 1)
 
 
+FUSES = ("add", "upsample_add")
+
+
 class ScheduledCNNRefine(nn.Module):
     def __init__(self, channels_in: int = 256, channels_noise: int = 16,
-                 num_timestep_embeds: int = 1280, dtype: Optional[torch.dtype] = None):
+                 fuse: str = "upsample_add", num_timestep_embeds: int = 1280,
+                 use_fused: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if fuse not in FUSES:
+            raise ValueError(f"fuse {fuse!r} is not ported; ported: {FUSES}")
+        self.fuse = fuse
+        self.use_fused = use_fused
         self.dtype = dtype
         self.noise_embedding = _conv_gn_block(channels_noise, 64, channels_in)
         self.time_embedding = nn.Embedding(num_timestep_embeds, channels_in)
-        self.upsample_add = nn.Module()
-        self.upsample_add.convA = _Conv(channels_in)
-        self.upsample_add.convB = _Conv(channels_in)
+        if fuse == "upsample_add":
+            self.upsample_add = nn.Module()
+            self.upsample_add.convA = _Conv(channels_in)
+            self.upsample_add.convB = _Conv(channels_in)
         self.pred = _conv_gn_block(channels_in, 64, channels_noise)
 
-    def fused_active(self) -> bool:
-        """True when the denoiser runs as the fused conv chain (bf16)."""
-        return self.dtype == torch.bfloat16
+    def fused_active(self, latent_h: int) -> bool:
+        """True when a call on a latent of height ``latent_h`` runs as the
+        fused conv chain: the JAX package's guard without its TPU term."""
+        return (self.use_fused and self.fuse == "upsample_add"
+                and self.dtype == torch.bfloat16 and latent_h % 8 == 0)
 
-    @staticmethod
-    def upsample_condition(cond: torch.Tensor, latent_hw) -> torch.Tensor:
-        """Bring the condition map to latent resolution once (align_corners)."""
+    def upsample_condition(self, cond: torch.Tensor, latent_hw) -> torch.Tensor:
+        """Bring the condition map to latent resolution once (align_corners).
+        ``'add'`` takes it as it is where it already has that size."""
+        if self.fuse == "add" and tuple(cond.shape[1:3]) == tuple(latent_hw):
+            return cond
         return resize_bilinear(cond, tuple(latent_hw), align_corners=True)
 
     def time_embed(self, t) -> torch.Tensor:
@@ -103,7 +122,7 @@ class ScheduledCNNRefine(nn.Module):
         (int or 0-d tensor) or (B,); cond_latent (B, h, w, C) at latent
         resolution."""
         te = self.time_embed(t)
-        if self.fused_active():
+        if self.fused_active(noisy_latent.shape[1]):
             b = noisy_latent.shape[0]
             te_b = te.expand(b, te.shape[-1]) if te.ndim == 1 else te
             return FusedDenoiser.apply(
@@ -112,6 +131,7 @@ class ScheduledCNNRefine(nn.Module):
                 *self.chain_flat())
         te = te[None, None, None, :] if te.ndim == 1 else te[:, None, None, :]
         h = cond_latent + te.to(cond_latent.dtype) + self._block(self.noise_embedding, noisy_latent)
-        for m in (self.upsample_add.convA.conv, self.upsample_add.convB.conv):
-            h = conv2d_nhwc(h, m.weight, m.bias, 1, 1, self.dtype)
+        if self.fuse == "upsample_add":
+            for m in (self.upsample_add.convA.conv, self.upsample_add.convB.conv):
+                h = conv2d_nhwc(h, m.weight, m.bias, 1, 1, self.dtype)
         return self._block(self.pred, h)

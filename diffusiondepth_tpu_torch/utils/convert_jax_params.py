@@ -1,15 +1,18 @@
 """JAX parameter trees -> the port's state dict.
 
 The inverse of ``diffusiondepth_tpu/utils/convert_torch_checkpoint.py``'s
-``convert_reference_model`` for the flagship composition (Swin backbone,
-DDIM head with FPN, ``DeepDepthTransformWithUpsampling``,
-``ScheduledCNNRefine`` and the HAHI conv path). Every registered Swin
-(the three Swin-L names, ``swin_tiny``, ``swin_micro``) has the same tree
-layout; only the widths and depths differ. The tree of a standalone
-``models/common.py::LayerNorm`` maps onto that module's state dict. It takes the flax
-``params`` and ``batch_stats`` trees as nested dicts of numpy arrays and
-returns tensors under the reference torch names, the names the port's
-modules use. The layout rules are the converter's, inverted:
+``convert_reference_model`` for ``Diffusion_DCbase_``: a Swin, mmbev ResNet
+(Basic, Bottleneck or CBAM blocks) or MPViT backbone under the DDIM head
+(FPN, ``DeepDepthTransformWithUpsampling``, ``ScheduledCNNRefine`` with or
+without the 'upsample_add' convs, the HAHI conv path). Each family's
+registered names share one tree layout; only widths and depths differ. The
+tree of a standalone ``models/common.py::LayerNorm`` maps onto that
+module's state dict. It takes the flax ``params`` and ``batch_stats``
+trees as nested dicts of numpy arrays and returns tensors under the
+reference torch names, the names the port's modules use (the CBAM block's
+names are the port's own: no reference converter reads them). A tree with
+a leaf it does not know raises. The layout rules are the converter's,
+inverted:
 
 * conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw)
 * TorchConvTranspose kernel (kh, kw, I, O) -> ConvTranspose2d weight (I, O, kh, kw)
@@ -21,6 +24,7 @@ modules use. The layout rules are the converter's, inverted:
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -46,12 +50,23 @@ def _norm(out, prefix, p):
     out[prefix + ".bias"] = p["bias"]
 
 
-def _bn(out, prefix, p, s):
-    _norm(out, prefix, p["BatchNorm_0"]["BatchNorm_0"])
+def _bn_at(out, prefix, p, s):
+    """The subtree of the JAX package's BatchNorm module (``{BatchNorm_0:
+    {scale, bias}}``) and of its statistics."""
+    _norm(out, prefix, p["BatchNorm_0"])
     if s:  # absent for a gradient tree
-        st = s["BatchNorm_0"]["BatchNorm_0"]
-        out[prefix + ".running_mean"] = st["mean"]
-        out[prefix + ".running_var"] = st["var"]
+        out[prefix + ".running_mean"] = s["BatchNorm_0"]["mean"]
+        out[prefix + ".running_var"] = s["BatchNorm_0"]["var"]
+
+
+def _bn(out, prefix, p, s):
+    _bn_at(out, prefix, p["BatchNorm_0"], s and s["BatchNorm_0"])
+
+
+def _dense(out, prefix, p):
+    out[prefix + ".weight"] = linear_weight(p["kernel"])
+    if "bias" in p:
+        out[prefix + ".bias"] = p["bias"]
 
 
 def _conv(out, prefix, p, deconv=False):
@@ -91,6 +106,83 @@ def _swin(out, pre, p):
             _norm(out, d + ".norm", v["norm"])
         if re.fullmatch(r"norm\d+", key):
             _norm(out, pre + key, v)
+
+
+def _cbam(out, c, p, s):
+    """``ops/cbam.py::CBAMWithPosEmbed``."""
+    _conv(out, c + ".dim_reduce.0", p["Conv_0"])
+    _bn_at(out, c + ".dim_reduce.1", p["BatchNorm_0"], s.get("BatchNorm_0"))
+    for i in (0, 1):
+        _dense(out, f"{c}.pos_embed.{i}", p[f"Dense_{i}"])
+    _conv(out, c + ".ca.fc1", p["ChannelAttention_0"]["Conv_0"])
+    _conv(out, c + ".ca.fc2", p["ChannelAttention_0"]["Conv_1"])
+    _conv(out, c + ".dim_expand.0", p["Conv_1"])
+    _bn_at(out, c + ".dim_expand.1", p["BatchNorm_1"], s.get("BatchNorm_1"))
+    _conv(out, c + ".sa.conv1", p["SpatialAttention_0"]["Conv_0"])
+
+
+def _resnet(out, pre, p, s):
+    for key, v in p.items():
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", key)
+        if not m:
+            raise ValueError(f"unknown ResNet subtree {key!r}")
+        b = f"{pre}layers.{m.group(1)}.{m.group(2)}"
+        vs = s.get(key, {})
+        i = 0
+        while f"Conv_{i}" in v:  # conv1/bn1, conv2/bn2 (conv3/bn3 in a bottleneck)
+            _conv(out, f"{b}.conv{i + 1}", v[f"Conv_{i}"])
+            _bn_at(out, f"{b}.bn{i + 1}", v[f"BatchNorm_{i}"], vs.get(f"BatchNorm_{i}"))
+            i += 1
+        if "downsample" in v:
+            _conv(out, b + ".downsample", v["downsample"])
+        if "CBAMWithPosEmbed_0" in v:
+            _cbam(out, b + ".cbam", v["CBAMWithPosEmbed_0"], vs.get("CBAMWithPosEmbed_0", {}))
+
+
+def _conv_bn_pair(out, prefix, p, s):
+    """The MPViT ``ConvBN``: ``{conv, bn}``."""
+    _conv(out, prefix + ".conv", p["conv"])
+    _bn_at(out, prefix + ".bn", p["bn"], s and s.get("bn"))
+
+
+def _mpvit(out, pre, p, s):
+    for key, v in p.items():
+        vs = s.get(key, {})
+        m = re.fullmatch(r"stem(\d+)|stage(\d+)_(patch_embed|mhca)(\d+)|stage(\d+)_(invres|aggregate)",
+                         key)
+        if not m:
+            raise ValueError(f"unknown MPViT subtree {key!r}")
+        if m.group(1) is not None:
+            _conv_bn_pair(out, f"{pre}stem.{m.group(1)}", v, vs)
+        elif m.group(3) == "patch_embed":
+            b = f"{pre}patch_embed_stages.{m.group(2)}.patch_embeds.{m.group(4)}.patch_conv"
+            _conv(out, b + ".dwconv", v["dwconv"])
+            _conv(out, b + ".pwconv", v["pwconv"])
+            _bn_at(out, b + ".bn", v["bn"], vs.get("bn"))
+        elif m.group(3) == "mhca":
+            b = f"{pre}mhca_stages.{m.group(2)}.mhca_blks.{m.group(4)}"
+            _conv(out, b + ".cpe.proj", v["cpe"]["proj"])
+            for ck, cv in v["crpe"].items():
+                _conv(out, f"{b}.crpe.conv_list.{ck.split('_')[1]}", cv)
+            for bk, bv in v.items():
+                bm = re.fullmatch(r"block(\d+)", bk)
+                if not bm:
+                    continue
+                lb = f"{b}.MHCA_layers.{bm.group(1)}"
+                _norm(out, lb + ".norm1", bv["norm1"])
+                _norm(out, lb + ".norm2", bv["norm2"])
+                _dense(out, lb + ".factoratt_crpe.qkv", bv["factoratt_crpe"]["qkv"])
+                _dense(out, lb + ".factoratt_crpe.proj", bv["factoratt_crpe"]["proj"])
+                _dense(out, lb + ".mlp.fc1", bv["mlp_fc1"])
+                _dense(out, lb + ".mlp.fc2", bv["mlp_fc2"])
+        elif m.group(6) == "invres":
+            b = f"{pre}mhca_stages.{m.group(5)}.InvRes"
+            _conv_bn_pair(out, b + ".conv1", v["conv1"], vs.get("conv1"))
+            _conv_bn_pair(out, b + ".conv2", v["conv2"], vs.get("conv2"))
+            _conv(out, b + ".dwconv", v["dwconv"])
+            _bn_at(out, b + ".norm", v["norm"], vs.get("norm"))
+        else:
+            _conv_bn_pair(out, f"{pre}mhca_stages.{m.group(5)}.aggregate", v, vs)
 
 
 def _conv_gn_block(out, prefix, p):
@@ -145,21 +237,44 @@ def _head(out, pre, p, s):
             _conv_bn(out, f"{h}{key}.0.conv", f"{h}{key}.0.bn", hp[key], hs.get(key))
 
 
+def _backbone(out, pre, p, s):
+    if "patch_embed" in p:
+        _swin(out, pre, p)
+    elif "stem0" in p:
+        _mpvit(out, pre, p, s)
+    elif any(re.fullmatch(r"layer\d+_block\d+", k) for k in p):
+        _resnet(out, pre, p, s)
+    else:
+        raise ValueError(f"unknown backbone tree with keys {sorted(p)[:4]}")
+
+
+def _n_leaves(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_n_leaves(v) for v in tree.values())
+    return 1
+
+
 def jax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[str, torch.Tensor]:
-    """Flax ``params`` / ``batch_stats`` of ``Diffusion_DCbase_Model`` (Swin +
-    DDIM head) -> the port's ``state_dict`` (f32 tensors). Without
-    ``batch_stats`` the running statistics are left out, so a gradient
-    tree (the ``params`` layout) maps leaf by leaf onto the port's
-    parameter names; ``batch_stats`` after a training step maps onto the
-    running statistics."""
+    """Flax ``params`` / ``batch_stats`` of ``Diffusion_DCbase_Model`` (a
+    Swin, ResNet or MPViT backbone + DDIM head) -> the port's
+    ``state_dict`` (f32 tensors). Without ``batch_stats`` the running
+    statistics are left out, so a gradient tree (the ``params`` layout)
+    maps leaf by leaf onto the port's parameter names; ``batch_stats``
+    after a training step maps onto the running statistics. Raises on a
+    leaf it does not map."""
     batch_stats = batch_stats or {}
     out: Dict[str, Any] = {}
+    known = {"depth_backbone", "depth_head"}
     if set(params) == {"scale", "bias"}:  # a standalone LayerNorm
         out = {"weight": params["scale"], "bias": params["bias"]}
+    elif not set(params) <= known or not set(batch_stats) <= known:
+        raise ValueError(f"unknown parameter tree with keys {sorted(set(params) | set(batch_stats))}")
     if "depth_backbone" in params:
-        if "patch_embed" not in params["depth_backbone"]:
-            raise NotImplementedError("only the Swin backbone is ported yet")
-        _swin(out, "depth_backbone.", params["depth_backbone"])
+        _backbone(out, "depth_backbone.", params["depth_backbone"],
+                  batch_stats.get("depth_backbone", {}))
     if "depth_head" in params:
         _head(out, "depth_head.", params["depth_head"], batch_stats.get("depth_head", {}))
+    n_in = _n_leaves(params) + _n_leaves(batch_stats)
+    if len(out) != n_in:
+        raise ValueError(f"the trees hold {n_in} leaves; {len(out)} were mapped")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}

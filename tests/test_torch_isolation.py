@@ -138,7 +138,7 @@ def test_cpu_eval_launches_no_kernel(use_pallas):
                       backbone_name="swin_micro", inference_steps=2, opt_level="O1",
                       head_in_channels="32,64,128,256", use_pallas=use_pallas).finalize()
     model = port.build_model(cfg, device="cpu")
-    assert model.depth_head.model.fused_active()
+    assert model.depth_head.model.fused_active(16)  # the 16x24 latent of a 32x48 batch
     port.reset_launch_counts()
     g = torch.Generator().manual_seed(1)
     batch = {"rgb": torch.randn(1, 32, 48, 3, generator=g),

@@ -8,6 +8,7 @@ there is no CUDA device. On a machine with a card and without JAX:
 import pytest
 import torch
 
+import diffusiondepth_tpu_torch as port
 from diffusiondepth_tpu_torch import LAUNCHES
 from diffusiondepth_tpu_torch.models.backbones.swin import shifted_window_mask
 from diffusiondepth_tpu_torch.ops import fused_denoiser as fd
@@ -316,3 +317,51 @@ def test_layernorm_fwd_bwd_match_plain(dev, m, c):
     assert (dx.float() - rdx.float()).abs().max() <= 1e-2 * rdx.float().abs().max()
     for a, b_ in ((ds, rds), (db, rdb)):
         assert (a - b_).abs().max() <= 1e-3 * b_.abs().max()
+
+
+# backbone family -> its Config fields
+_FAMILIES = {
+    "res18": dict(backbone_module="mmbev_resnet", backbone_name="mmbev_res18",
+                  head_specify="DDIMDepthEstimate_Res"),
+    "mpvit_tiny": dict(backbone_module="mpvit", backbone_name="mpvit_tiny",
+                       head_specify="DDIMDepthEstimate_MPVIT_ADDHAHI",
+                       head_in_channels="96,176,216,216"),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILIES))
+def test_family_launch_counts(dev, family):
+    """Under the bf16 policy on the card, 2 DDIM steps on a 64x96 batch of
+    2: the Res head's 'add' denoiser launches no kernel, in eval or in one
+    training step; the MPViT head takes the fused chain, 6 K1 + 1 K3 per
+    eval step, and in training per sampler step 6 K1 + K2 forward and 6 K1
+    + K6 + 6 K5 backward, plus the ddim_loss call's 6 K1 and its backward's
+    6 K1 + 6 K5. No attention or LayerNorm kernel runs on either."""
+    steps = 2
+    cfg = port.Config(model_name="Diffusion_DCbase_", inference_steps=steps, opt_level="O1",
+                      batch_size=2, **_FAMILIES[family]).finalize()
+    model = port.build_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"rgb": torch.randn(2, 64, 96, 3, generator=g, device=dev),
+             "gt": torch.rand(2, 64, 96, 1, generator=g, device=dev) * 8 + 1}
+    chain = family == "mpvit_tiny"
+    port.reset_launch_counts()
+    pred, met, _ = port.make_eval_step(model)(batch, generator=g)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in LAUNCHES}
+    if chain:
+        want.update(conv_link=6 * steps, ddim_step=steps)
+    assert dict(LAUNCHES) == want
+    assert bool(torch.isfinite(pred).all()) and bool(torch.isfinite(met).all())
+
+    step = port.make_train_step(model, port.LossComputer(cfg),
+                                port.make_optimizer(cfg, 10, model))
+    port.reset_launch_counts()
+    loss, _, _ = step(batch, generator=g)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in LAUNCHES}
+    if chain:
+        want.update(conv_link=2 * 6 * (steps + 1), sched_step=steps,
+                    conv_link_bwd=6 * (steps + 1), sched_bwd=steps)
+    assert dict(LAUNCHES) == want
+    assert bool(torch.isfinite(loss))

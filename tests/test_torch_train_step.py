@@ -24,48 +24,16 @@ from diffusiondepth_tpu.training.steps import make_train_step as jmake_train_ste
 from diffusiondepth_tpu.training.train_state import TrainState  # noqa: E402
 from diffusiondepth_tpu_torch import LossComputer, make_optimizer, make_train_step  # noqa: E402
 from diffusiondepth_tpu_torch.training.train_state import create_train_state  # noqa: E402
-from diffusiondepth_tpu_torch.utils.convert_jax_params import jax_to_state_dict  # noqa: E402
 
 from test_torch_support import (  # noqa: E402
-    init_latent, jax_model, jax_variables, make_batch, port_config, port_model, torch_batch,
+    Draws as _Draws, FixedLatent as _FixedLatent, close_leaves as _close, init_latent,
+    jax_model, jax_variables, make_batch, named as _named, port_config, port_model,
+    torch_batch,
 )
 
 torch.set_num_threads(1)
 
 STEPS = 2
-
-
-class _Draws:
-    """Stands in for ``jax`` inside the JAX head: ``random.normal`` and
-    ``random.randint`` return the given DDIM noise and timesteps."""
-
-    def __init__(self, noise, timesteps):
-        rnd = jax.random
-
-        class _Random:
-            def __getattr__(self, k):
-                return getattr(rnd, k)
-
-            @staticmethod
-            def normal(key, shape, dtype=jnp.float32):
-                return jnp.asarray(noise, dtype).reshape(shape)
-
-            @staticmethod
-            def randint(key, shape, lo, hi):
-                return jnp.asarray(timesteps, jnp.int32).reshape(shape)
-
-        self.random = _Random()
-
-    def __getattr__(self, k):
-        return getattr(jax, k)
-
-
-class _FixedLatent:
-    def __init__(self, model, latent):
-        self.model, self.latent = model, latent
-
-    def apply(self, variables, batch, **kw):
-        return self.model.apply(variables, batch, init_latent=self.latent, **kw)
 
 
 def _inject(monkeypatch, port, lat, noise, ts):
@@ -104,23 +72,6 @@ def _setup(monkeypatch, micro, **opt):
     jcfg = dataclasses.replace(jconfig.Config(), **kw)
     pcfg = dataclasses.replace(port_config(STEPS), **kw)
     return batch, jm, variables, port, lat, jcfg, pcfg
-
-
-def _named(tree, batch_stats=None):
-    """A JAX params (or gradient) tree under the port's parameter names."""
-    return {k: v.numpy() for k, v in jax_to_state_dict(tree, batch_stats).items()}
-
-
-def _close(port_vals, jax_vals, tol):
-    """Each leaf within ``tol`` of its largest value; a leaf whose values
-    are below 1e-4 of the largest of all leaves (a gradient that vanishes
-    analytically, as that of a bias followed by BatchNorm) is held to that
-    floor instead: there both packages hold float noise."""
-    floor = 1e-4 * max(np.abs(v).max() for v in jax_vals.values())
-    for name, ref in jax_vals.items():
-        err = np.abs(port_vals[name] - ref).max()
-        scale = max(np.abs(ref).max(), floor)
-        assert err <= tol * scale, (name, err, scale)
 
 
 def test_plain_step_matches_jax(monkeypatch):
