@@ -88,7 +88,20 @@ Phases, one JSON line each:
              in the backbone, neck, FPN and denoiser, every backbone
              BatchNorm statistic bit-unchanged (norm_eval) while every head
              statistic moves, the flagship train launch counts of K1, K2,
-             K5, K6 and 0 of K4 and K7; the device time of one step by part.
+             K5, K6 and 0 of K4 and K7; the device time of one step by part;
+11. cli    - the runtime, through diffusiondepth_tpu_torch.main: a KITTI-DC
+             tree written with the port's PNG writer (16 train and 8 val
+             frames at 375x1242, 8 test frames at 352x1216); main.train with
+             the README's flags (flagship, bf16, 352x906 crops, global batch
+             8 = 2 x 4, 1 epoch, --save_full): 2 steps, a val and a test
+             pass, exact K1-K7 launch counts, finite logged losses, the
+             metric logs, the event files' records and CRCs; the loader's
+             throughput alone with a thread per core; --test_only on the
+             checkpoint (bit-equal reload, KITTI submission PNGs that decode
+             to uint16(pred * 256), the "Average processing time"); --resume
+             (starts at epoch 2, the optimizer count going on from 2).
+             Reports step times, the share of each step spent waiting on
+             the loader, the loader's frames/s, eval times and peak memory.
 
 Then a line {"kernels": [...]}, the run's seconds and, last,
 {"ok": true, "device": {...}}.
@@ -170,6 +183,230 @@ def check(ok: bool, msg: str) -> None:
 def bound(nbytes: float, flops: float, peak: float):
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+# the KITTI-DC tree of phase 11: split -> (frames, height, width)
+KITTI_TREE = {"train": (16, 375, 1242), "val": (8, 375, 1242), "test": (8, 352, 1216)}
+# phase 11's model and data flags: the flagship at the README's crop
+CLI_FLAGS = ["--model_name", "Diffusion_DCbase_", "--backbone_module", "swin",
+             "--backbone_name", "swin_large_naive_l4w722422k",
+             "--head_specify", "DDIMDepthEstimate_Swin_ADDHAHI",
+             "--loss", "1.0*L1+1.0*L2+1.0*DDIM", "--opt_level", "O1",
+             "--patch_height", "352", "--patch_width", "906", "--top_crop", "16"]
+
+
+def write_kitti_tree(root: str, tree=None, seed: int = 0) -> None:
+    """A KITTI-DC tree under ``root``, written with the port's PNG writer:
+    16 train and 8 val frames at KITTI's raw 375x1242 (RGB8 images, gray16
+    sparse depth and ground truth with ~5% of the pixels set, calib files
+    with P_rect_02) and 8 test frames at 352x1216 (KITTI-DC's selection
+    size, single-line intrinsics), and its split JSON."""
+    import numpy as np
+
+    from diffusiondepth_tpu_torch.native.png import write_png
+
+    rng = np.random.RandomState(seed)
+    p_rect = ("7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 0.000000e+00 "
+              "7.215377e+02 1.728540e+02 2.163791e-01 0.000000e+00 0.000000e+00 "
+              "1.000000e+00 2.745884e-03")
+    split = {}
+    for mode, (n, h, w) in (tree or KITTI_TREE).items():
+        entries = []
+        for i in range(n):
+            d = os.path.join(mode, f"drive_{i:04d}")
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+            # a smooth scene with noise: a ramp of depth and colour
+            ramp = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+            rgb = (200 * ramp[..., None] * rng.rand(1, 1, 3) + 40 * rng.rand(h, w, 3))
+            write_png(os.path.join(root, d, "image_02.png"), rgb.astype(np.uint8))
+            depth = (5.0 + 70.0 * ramp + rng.rand(h, w)) * 256.0
+            for name in ("velodyne_raw", "groundtruth"):
+                keep = rng.rand(h, w) < 0.05
+                write_png(os.path.join(root, d, name + ".png"),
+                          np.where(keep, depth, 0).astype(np.uint16))
+            if mode == "test":
+                calib = "intrinsics.txt"
+                with open(os.path.join(root, d, calib), "w") as f:
+                    f.write("721.5377 0.0 596.5593 0.0 721.5377 149.854 0.0 0.0 1.0\n")
+            else:
+                calib = "calib_cam_to_cam.txt"
+                with open(os.path.join(root, d, calib), "w") as f:
+                    f.write(f"calib_time: 09-Jan-2012 13:57:47\nP_rect_02: {p_rect}\n")
+            entries.append({"rgb": f"{d}/image_02.png", "depth": f"{d}/velodyne_raw.png",
+                            "gt": f"{d}/groundtruth.png", "K": f"{d}/{calib}"})
+        split[mode] = entries
+    with open(os.path.join(root, "split.json"), "w") as f:
+        json.dump(split, f)
+
+
+def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tree=None) -> dict:
+    """Phase 11: main's train -> val -> test loop on a KITTI-DC tree, then
+    --test_only on the saved checkpoint, then --resume, on ``device``, each
+    required to launch ``step_launches`` per training step and
+    ``eval_launches`` per eval batch. ``flags`` and ``tree`` default to the
+    flagship's (``CLI_FLAGS``, ``KITTI_TREE``); the CPU tests rehearse the
+    phase at a small size. Returns the training run's launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from diffusiondepth_tpu_torch import main as pmain
+    from diffusiondepth_tpu_torch.config import parse_args
+    from diffusiondepth_tpu_torch.data import DataLoader, get as get_data
+    from diffusiondepth_tpu_torch.losses import get_loss_names
+    from diffusiondepth_tpu_torch.metrics import METRIC_NAMES
+    from diffusiondepth_tpu_torch.native.png import read_png
+    from diffusiondepth_tpu_torch.summary.tb_events import read_events
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kitti_dc_")
+    try:
+        write_kitti_tree(root, tree)
+        tree_s = time.perf_counter() - t_phase
+        model_flags = ["--data_name", "KITTIDC", "--dir_data", root,
+                       "--split_json", os.path.join(root, "split.json"), *(flags or CLI_FLAGS)]
+        train_flags = model_flags + ["--batch_size", "8", "--accum_steps", "2",
+                                     "--test_batch_size", "8", "--epochs", "1", "--save_full"]
+
+        def run(argv, save_dir, fn):
+            cfg = parse_args(argv)
+            cfg.save_dir = os.path.join(root, save_dir)
+            port.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            state = fn(cfg, device=device)
+            sync()
+            return cfg, state, dict(port.LAUNCHES), time.perf_counter() - t0
+
+        def logged(path, names):
+            """The values of each line of a text log, checked to hold ``names``
+            in order and finite values."""
+            rows = []
+            with open(path) as f:
+                for line in f:
+                    pairs = [kv.split(": ") for kv in line.split("|", 2)[2].split("  ")
+                             if ": " in kv]
+                    check([k.strip() for k, _ in pairs] == list(names),
+                          f"{path}: names {[k for k, _ in pairs]} != {names}")
+                    vals = [float(v) for _, v in pairs]
+                    check(all(math.isfinite(v) for v in vals), f"{path}: {line}")
+                    rows.append(vals)
+            return rows
+
+        def expect(train_steps, eval_batches):
+            return {k: train_steps * step_launches.get(k, 0)
+                    + eval_batches * eval_launches.get(k, 0) for k in port.LAUNCHES}
+
+        # ---- train: 2 steps (16 frames, batch 8), a val and a test pass
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        cfg, state, launches, train_s = run(train_flags, "train", pmain.train)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        check(launches == expect(2, 2), f"cli train launch counts {launches} != "
+              f"{expect(2, 2)}")
+        check(state.step == 2 and state.optimizer.count == 2, f"cli train: step {state.step}")
+        tm = state.timings
+        losses = logged(os.path.join(cfg.save_dir, "loss_train.txt"), get_loss_names(cfg))
+        for mode in ("train", "val", "test"):
+            logged(os.path.join(cfg.save_dir, f"metric_{mode}.txt"), METRIC_NAMES)
+        # the event files: records and CRCs (read_events checks both)
+        n_records = {"train": 1 + len(get_loss_names(cfg)) + 8, "val": 1 + 8 + 1,
+                     "test": 1 + 8 + 1}
+        for mode, n in n_records.items():
+            (ev_file,) = [f for f in os.listdir(os.path.join(cfg.save_dir, mode))
+                          if f.startswith("events.out.tfevents")]
+            events = read_events(os.path.join(cfg.save_dir, mode, ev_file))
+            check(len(events) == n, f"{mode} event file: {len(events)} records != {n}")
+            check(events[0].get("file_version") == "brain.Event:2", "event file version")
+        ckpt = os.path.join(cfg.save_dir, "model_00001.ckpt")
+        check(os.path.exists(ckpt), "no model_00001.ckpt")
+        waits, steps = tm["wait_s"], tm["step_s"]
+        emit({"phase": "cli", "run": "train", "flags": " ".join(train_flags[6:]),
+              "seconds": train_s, "tree_seconds": tree_s, "step_ms": [1e3 * x for x in steps],
+              "loader_wait_ms": [1e3 * x for x in waits],
+              "loader_wait_share": [w / (w + t) for w, t in zip(waits, steps)],
+              "loader_batch_ms": [1e3 * x for x in tm["load_s"]],
+              "loader_frames_per_s": 8 * len(tm["load_s"]) / sum(tm["load_s"]),
+              "loader_threads": cfg.num_threads,
+              "val_batch_ms": [1e3 * x for x in tm["val_s"]],
+              "test_batch_ms": [1e3 * x for x in tm["test_s"]],
+              "max_memory_allocated_gb": peak_gb, "loss_rows": losses,
+              "launches": launches})
+
+        # the same epoch's loader alone with a thread per core, for scale
+        threads = os.cpu_count()
+        loader = DataLoader(get_data(cfg)(cfg, "train"), cfg.batch_size, shuffle=True,
+                            drop_last=True, num_threads=threads, prefetch=cfg.prefetch,
+                            seed=cfg.seed)
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        frames = sum(b["rgb"].shape[0] for b in loader)
+        emit({"phase": "cli", "run": "loader", "threads": threads,
+              "frames_per_s": frames / (time.perf_counter() - t0)})
+
+        # ---- evaluate the checkpoint: --test_only, KITTI submission PNGs
+        test_flags = model_flags + ["--test_only", "--pretrain", ckpt, "--test_batch_size", "4",
+                                    "--save_image", "--save_result_only", "--save_raw_npdepth"]
+        tcfg, tstate, t_launches, test_s = run(test_flags, "test_only", pmain.test)
+        check(t_launches == expect(0, 2), f"cli test launch counts {t_launches} != "
+              f"{expect(0, 2)}")
+        trained, reloaded = state.model.state_dict(), tstate.model.state_dict()
+        check(trained.keys() == reloaded.keys() and all(
+            torch.equal(trained[k], reloaded[k]) for k in trained),
+            "the reloaded checkpoint differs from the trained state")
+        out_dir = os.path.join(tcfg.save_dir, "test", "epoch0000")
+        pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        check(pngs == [f"{i:010d}.png" for i in range(8)], f"submission files {pngs}")
+        for f in pngs:
+            pred = np.load(os.path.join(out_dir, f.replace(".png", ".npy")))
+            check(np.array_equal(read_png(os.path.join(out_dir, f)),
+                                 (pred * 256.0).astype(np.uint16)),
+                  f"{f} does not decode to uint16(pred * 256)")
+        logged(os.path.join(tcfg.save_dir, "metric_test.txt"), METRIC_NAMES)
+        timed = tstate.timings["test_s"][1:]  # batch 0 left out, as main's report
+        emit({"phase": "cli", "run": "test_only", "seconds": test_s,
+              "test_batch_ms": [1e3 * x for x in tstate.timings["test_s"]],
+              "average_processing_s": sum(timed) / (4 * len(timed)),
+              "reload_bit_equal": True, "submission_pngs": len(pngs),
+              "launches": t_launches})
+        del tstate, trained, reloaded
+
+        # ---- resume. The resume rule takes every arg but a few from the
+        # checkpoint's args file, epochs too (as the reference does), so the
+        # file is given the 2 epochs of a run stopped after its first
+        args_json = ckpt.replace(".ckpt", ".args.json")
+        with open(args_json) as f:
+            saved = json.load(f)
+        saved["epochs"] = 2
+        with open(args_json, "w") as f:
+            json.dump(saved, f, indent=2)
+        resume_flags = model_flags + ["--resume", "--pretrain", ckpt, "--epochs", "2"]
+        rcfg, rstate, r_launches, resume_s = run(resume_flags, "resume", pmain.train)
+        check(r_launches == expect(2, 2), f"cli resume launch counts {r_launches}")
+        check(rstate.optimizer.count == 4 and rstate.step == 4,
+              f"resume: optimizer count {rstate.optimizer.count}, step {rstate.step}")
+        with open(os.path.join(rcfg.save_dir, "loss_train.txt")) as f:
+            epochs_logged = [line.split(" |")[0] for line in f]
+        check(epochs_logged == ["0002"], f"resume logged epochs {epochs_logged}")
+        check(sorted(f for f in os.listdir(rcfg.save_dir) if f.endswith(".ckpt"))
+              == ["model_00002.ckpt"], "resume: checkpoint names")
+        emit({"phase": "cli", "run": "resume", "seconds": resume_s,
+              "epochs_logged": epochs_logged, "optimizer_count": rstate.optimizer.count,
+              "step_ms": [1e3 * x for x in rstate.timings["step_s"]],
+              "loader_wait_ms": [1e3 * x for x in rstate.timings["wait_s"]],
+              "launches": r_launches})
+        del state, rstate
+        sync()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "cli", "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def main() -> int:
@@ -1546,6 +1783,13 @@ def main() -> int:
         path_launches["train-mpvit_small"] = m_launches
         del model, optimizer, step, batches, batch
         sync()
+
+        # ---- 11. the runtime: train, evaluate and resume the flagship
+        # through main on a KITTI-DC tree written with the port's PNG writer
+        # per eval batch at 20 steps: 6 K1 + K3 per step, one K4 per Swin block
+        path_launches["cli"] = cli_phase(port, torch, dev, t_expect, {
+            "conv_link": 6 * STEPS, "ddim_step": STEPS,
+            "window_attention": sum(SWIN_L["depths"])})
 
     # (route, source, TPU kernel, the path whose run counts its launches:
     # the path at whose shapes the kernel phase timed it). K1 and K4 run on

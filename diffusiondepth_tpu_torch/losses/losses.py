@@ -90,3 +90,9 @@ class LossComputer:
 def get_loss_names(args) -> List[str]:
     """Term names + 'Total', the layout of the ``loss_val`` row."""
     return [item.split("*")[1] for item in args.loss.split("+")] + ["Total"]
+
+
+def get_loss(args):
+    """Factory: a callable that builds the ``LossComputer`` of ``args``
+    (NLSPN and Diffusion_DCbase_ share the masked L1/L2 machinery)."""
+    return lambda a=args: LossComputer(a)

@@ -41,3 +41,21 @@ def evaluate_depth_metrics(sample: Dict, output: Dict) -> torch.Tensor:
     d3 = ((ratio < 1.25 ** 3).float() * m).sum() / denom
 
     return torch.stack([rmse, mae, irmse, imae, rel, d1, d2, d3])[None]
+
+
+class DepthMetric:
+    """The metric plugin: ``evaluate(sample, output)`` -> the (1, 8) row."""
+
+    metric_name = METRIC_NAMES
+
+    def __init__(self, args):
+        self.args = args
+
+    def evaluate(self, sample: Dict, output: Dict, mode: str = "test") -> torch.Tensor:
+        del mode
+        return evaluate_depth_metrics({"gt": sample["gt"]}, {"pred": output["pred"]})
+
+
+def get_metric(args):
+    """Factory: a callable that builds the ``DepthMetric`` of ``args``."""
+    return lambda a=args: DepthMetric(a)

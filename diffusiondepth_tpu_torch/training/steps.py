@@ -77,8 +77,9 @@ def make_eval_step(model, tta_flip: bool = False) -> Callable:
     """Returns ``eval_step(batch, generator=None, init_latent=None) ->
     (pred, metric_row, extras)``.
 
-    Runs the model in eval mode under ``torch.no_grad`` on the device its
-    parameters live on (the batch's tensors must be there too). The starting
+    Puts the model in eval mode at each call and runs it under
+    ``torch.no_grad`` on the device its parameters live on (the batch's
+    tensors must be there too). The starting
     latent comes from ``generator`` (a ``torch.Generator`` on that device)
     unless ``init_latent`` fixes it. No ddim_loss is computed at eval.
     ``extras`` is empty: no output of this slice's model needs it.
@@ -89,12 +90,12 @@ def make_eval_step(model, tta_flip: bool = False) -> Callable:
     pred = (pred[:B] + flip(pred[B:])) / 2. A given ``init_latent`` must
     then have 2B rows, the first B for the batch and the rest for its
     mirror. The metric row is computed on the original batch."""
-    model.eval()
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None,
                   init_latent: Optional[torch.Tensor] = None):
+        model.eval()  # a train step between two eval steps puts it in training mode
         if tta_flip:
             b = batch["rgb"].shape[0]
             flipped = _hflip_batch(batch)

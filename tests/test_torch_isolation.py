@@ -41,6 +41,41 @@ def test_import_pulls_in_no_jax():
     assert out[1].strip() == "[]", out
 
 
+_IMPORT_ALL_RUNTIME = """
+import importlib, pkgutil, sys
+import diffusiondepth_tpu_torch as P
+names = [m.name for m in pkgutil.walk_packages(P.__path__, "diffusiondepth_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("PIL", "matplotlib", "h5py", "cv2", "msgpack", "flax"))
+print(len(names), bad)
+"""
+
+# the card's machine has none of these: the runtime (data, summaries,
+# checkpoints) must not need them
+_RUNTIME_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(PIL|matplotlib|h5py|cv2|msgpack|flax)\b"
+    r"|from\s+(PIL|matplotlib|h5py|cv2|msgpack|flax)\b)", re.M)
+
+
+def test_import_pulls_in_no_image_or_serialization_library():
+    """A fresh interpreter imports every module of the port, the runtime's
+    too (main, data, summary, utils, native); no PIL, matplotlib, h5py,
+    cv2, msgpack or flax module is loaded."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL_RUNTIME], cwd=REPO, check=True,
+                         capture_output=True, text=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 30, out
+    assert out[1].strip() == "[]", out
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+def test_source_has_no_image_or_serialization_import(path):
+    src = (REPO / path).read_text()
+    assert not _RUNTIME_FORBIDDEN.search(src), _RUNTIME_FORBIDDEN.search(src).group(0)
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|flax|diffusiondepth_tpu)\b(?!_torch)"
     r"|from\s+(jax|flax|diffusiondepth_tpu)\b(?!_torch))", re.M)
