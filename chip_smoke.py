@@ -103,6 +103,27 @@ Phases, one JSON line each:
              Reports step times, the share of each step spent waiting on
              the loader, the loader's frames/s, eval times and peak memory.
 
+12. reference (nlspn) - NLSPN resnet18 (prop_time 3, 2 x 32x48, random
+             offset-conv weights) on the card against the CPU, f32 and bf16,
+             at radius 6 (the stencil) and 0 (the gather): every output,
+             then one training step's loss and per-leaf gradients;
+13. serve-nlspn - the NLSPN recipe (resnet34, 18 steps, TGASS, conf_prop,
+             f32, weights from seed 7240 with a random offset conv) serves 3
+             requests of 8 x 240x1216 after one warm-up, at radius 6 and at
+             radius 0: latency, frames/s, peak memory, the device time of one
+             request by part (encoder-decoder, offset/affinity + stencil
+             build, the 18-step propagation), 0 launches of every kernel;
+             the two radii's propagations agree on the serve batch's own
+             operands with the offsets held to [-6, 6]; one propagation step
+             alone at each radius against its bound;
+14. train-nlspn - the recipe at global batch 8, 240x1216, 1.0*L1+1.0*L2,
+             Adam, radius 6: one warm-up and 2 timed steps, step time,
+             samples/s, peak memory, the device time by part, finite and
+             non-zero gradients in the encoder, the decoders, the offset conv
+             and aff_scale_const, 0 launches;
+15. cli-nlspn - phase 11 with the recipe's flags (--model_name NLSPN ...):
+             NLSPNSummary's gamma scalar and 5-column panels on the card.
+
 Then a line {"kernels": [...]}, the run's seconds and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, and the script exits non-zero.
@@ -239,13 +260,17 @@ def write_kitti_tree(root: str, tree=None, seed: int = 0) -> None:
         json.dump(split, f)
 
 
-def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tree=None) -> dict:
+def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tree=None,
+              phase="cli") -> dict:
     """Phase 11: main's train -> val -> test loop on a KITTI-DC tree, then
     --test_only on the saved checkpoint, then --resume, on ``device``, each
     required to launch ``step_launches`` per training step and
     ``eval_launches`` per eval batch. ``flags`` and ``tree`` default to the
     flagship's (``CLI_FLAGS``, ``KITTI_TREE``); the CPU tests rehearse the
-    phase at a small size. Returns the training run's launch counts."""
+    phase at a small size. NLSPN's val and test logs also hold its
+    ``Etc/gamma`` scalar, and its panels the confidence strip (5 columns).
+    Records are emitted under ``phase``. Returns the training run's launch
+    counts."""
     import tempfile
 
     import numpy as np
@@ -316,18 +341,25 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
         for mode in ("train", "val", "test"):
             logged(os.path.join(cfg.save_dir, f"metric_{mode}.txt"), METRIC_NAMES)
         # the event files: records and CRCs (read_events checks both)
-        n_records = {"train": 1 + len(get_loss_names(cfg)) + 8, "val": 1 + 8 + 1,
-                     "test": 1 + 8 + 1}
+        # + Etc/gamma for NLSPN at val and test
+        nlspn = cfg.model_name == "NLSPN"
+        n_records = {"train": 1 + len(get_loss_names(cfg)) + 8, "val": 1 + 8 + 1 + nlspn,
+                     "test": 1 + 8 + 1 + nlspn}
         for mode, n in n_records.items():
             (ev_file,) = [f for f in os.listdir(os.path.join(cfg.save_dir, mode))
                           if f.startswith("events.out.tfevents")]
             events = read_events(os.path.join(cfg.save_dir, mode, ev_file))
             check(len(events) == n, f"{mode} event file: {len(events)} records != {n}")
             check(events[0].get("file_version") == "brain.Event:2", "event file version")
+            if mode != "train":
+                panel = read_png(os.path.join(cfg.save_dir, mode, "images", "step_000001.png"))
+                cols = 5 if nlspn else 4  # rgb | dep | pred | gt (| confidence)
+                check(panel.shape[1] == cols * cfg.patch_width if mode == "val" else
+                      panel.shape[1] % cols == 0, f"{mode} panel {panel.shape}")
         ckpt = os.path.join(cfg.save_dir, "model_00001.ckpt")
         check(os.path.exists(ckpt), "no model_00001.ckpt")
         waits, steps = tm["wait_s"], tm["step_s"]
-        emit({"phase": "cli", "run": "train", "flags": " ".join(train_flags[6:]),
+        emit({"phase": phase, "run": "train", "flags": " ".join(train_flags[6:]),
               "seconds": train_s, "tree_seconds": tree_s, "step_ms": [1e3 * x for x in steps],
               "loader_wait_ms": [1e3 * x for x in waits],
               "loader_wait_share": [w / (w + t) for w, t in zip(waits, steps)],
@@ -347,7 +379,7 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
         loader.set_epoch(1)
         t0 = time.perf_counter()
         frames = sum(b["rgb"].shape[0] for b in loader)
-        emit({"phase": "cli", "run": "loader", "threads": threads,
+        emit({"phase": phase, "run": "loader", "threads": threads,
               "frames_per_s": frames / (time.perf_counter() - t0)})
 
         # ---- evaluate the checkpoint: --test_only, KITTI submission PNGs
@@ -370,7 +402,7 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
                   f"{f} does not decode to uint16(pred * 256)")
         logged(os.path.join(tcfg.save_dir, "metric_test.txt"), METRIC_NAMES)
         timed = tstate.timings["test_s"][1:]  # batch 0 left out, as main's report
-        emit({"phase": "cli", "run": "test_only", "seconds": test_s,
+        emit({"phase": phase, "run": "test_only", "seconds": test_s,
               "test_batch_ms": [1e3 * x for x in tstate.timings["test_s"]],
               "average_processing_s": sum(timed) / (4 * len(timed)),
               "reload_bit_equal": True, "submission_pngs": len(pngs),
@@ -396,7 +428,7 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
         check(epochs_logged == ["0002"], f"resume logged epochs {epochs_logged}")
         check(sorted(f for f in os.listdir(rcfg.save_dir) if f.endswith(".ckpt"))
               == ["model_00002.ckpt"], "resume: checkpoint names")
-        emit({"phase": "cli", "run": "resume", "seconds": resume_s,
+        emit({"phase": phase, "run": "resume", "seconds": resume_s,
               "epochs_logged": epochs_logged, "optimizer_count": rstate.optimizer.count,
               "step_ms": [1e3 * x for x in rstate.timings["step_s"]],
               "loader_wait_ms": [1e3 * x for x in rstate.timings["wait_s"]],
@@ -405,8 +437,359 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
         sync()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    emit({"phase": "cli", "seconds": time.perf_counter() - t_phase})
+    emit({"phase": phase, "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+# NLSPN's recipe: the authors' KITTI-DC flags (resnet34, 18 steps, TGASS
+# with gamma 0.5, confidence propagation, 240x1216 crops, f32)
+NLSPN_FLAGS = ["--model_name", "NLSPN", "--network", "resnet34", "--prop_time", "18",
+               "--prop_kernel", "3", "--affinity", "TGASS", "--affinity_gamma", "0.5",
+               "--conf_prop", "--patch_height", "240", "--patch_width", "1216",
+               "--top_crop", "100", "--test_crop", "--max_depth", "90",
+               "--loss", "1.0*L1+1.0*L2", "--opt_level", "O0"]
+B_N, H_N, W_N = 8, 240, 1216
+
+
+def randomize_offset_conv(torch, model, seed, offset_scale):
+    """Random weights for ``prop_layer.conv_offset_aff``, zero at init (where
+    every offset is 0 and the propagation is the identity): N(0, 1 /
+    fan-in), the offset channels scaled by ``offset_scale``, the bias
+    N(0, 0.1^2); drawn from ``seed``."""
+    conv = model.prop_layer.conv_offset_aff
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(conv.weight.shape, generator=g) / conv.weight[0].numel() ** 0.5
+    w[:2 * model.prop_layer.num] *= offset_scale
+    with torch.no_grad():
+        conv.weight.copy_(w)
+        conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=g))
+
+
+def nlspn_phases(port, torch, dev) -> dict:
+    """Phases 12-15, NLSPN: the micro model card vs CPU, serving and
+    training the recipe's model at 8 x 240x1216, and main's loop on it.
+    Returns the launch counts of each path (every kernel 0)."""
+    import numpy as np
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def timed(fn):
+        """(result, device ms) of one call."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        sync()
+        return out, start.elapsed_time(end)
+
+    zero = {k: 0 for k in port.LAUNCHES}
+    path_launches = {}
+
+    # ---- 12. the micro model of the tests, card vs CPU, f32 and bf16, both
+    # radii, with random offset-conv weights: every output, then one
+    # training step
+    def micro_batch(seed):
+        rng = np.random.RandomState(seed)
+        gt = (rng.rand(2, 32, 48, 1) * 80 + 1).astype(np.float32)
+        gt[:, :3] = 0.0
+        return {"rgb": torch.from_numpy(rng.randn(2, 32, 48, 3).astype(np.float32)),
+                "dep": torch.from_numpy(gt * (rng.rand(2, 32, 48, 1) > 0.9)),
+                "gt": torch.from_numpy(gt)}
+
+    def rel(a, b):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    t0 = time.perf_counter()
+    ref = {}
+    # f32: another summation order, amplified by the offsets through the
+    # bilinear reads (1e-3; gradients 2e-2 RMS, as the flagship's micro
+    # step). bf16: 8-bit rounding at other points (5e-2; gradients 0.25)
+    for opt, tol, gtol in (("O0", 1e-3, 2e-2), ("O1", 5e-2, 0.25)):
+        for radius in (6, 0):
+            cfg = port.Config(model_name="NLSPN", network="resnet18", prop_time=3,
+                              prop_stencil_radius=radius, opt_level=opt, loss="1.0*L1+1.0*L2",
+                              max_depth=90.0, seed=11).finalize()
+            gm = port.build_model(cfg)
+            randomize_offset_conv(torch, gm, 11, 2.0)
+            cm = port.build_model(cfg, device="cpu")
+            cm.load_state_dict(gm.state_dict())
+            batch = micro_batch(1)
+            outs = []
+            with torch.no_grad():
+                for m, d in ((gm, dev), (cm, torch.device("cpu"))):
+                    outs.append(m({k: v.to(d) for k, v in batch.items()}))
+            errs = {k: rel(outs[0][k], outs[1][k]) for k in
+                    ("pred", "pred_init", "pred_inter", "guidance", "offset", "aff", "confidence")}
+            lc = port.LossComputer(cfg)
+            losses, grads = [], []
+            for m, d in ((gm, dev), (cm, torch.device("cpu"))):
+                m.train()
+                mb = {k: v.to(d) for k, v in batch.items()}
+                loss = lc(mb, m(mb))[0] / 2
+                loss.backward()
+                losses.append(loss.item())
+                grads.append({n: p.grad.double().cpu() for n, p in m.named_parameters()})
+            rms = {n: g.square().mean().sqrt().item() for n, g in grads[1].items()}
+            floor = 1e-3 * max(rms.values())
+            dist = {n: (grads[0][n] - g).square().mean().sqrt().item() / max(rms[n], floor)
+                    for n, g in grads[1].items()}
+            worst = max(dist, key=dist.get)
+            rec = {"rel_err": errs, "tol": tol, "loss": losses,
+                   "loss_rel_err": abs(losses[0] - losses[1]) / abs(losses[1]),
+                   "worst_leaf": worst, "worst_rms_dist": dist[worst], "grad_tol": gtol,
+                   "offset_beyond_6": float((outs[1]["offset"].abs() > 6).float().mean())}
+            ref[f"{opt} r{radius}"] = rec
+            check(all(math.isfinite(e) and e <= tol for e in errs.values())
+                  and rec["loss_rel_err"] <= tol and dist[worst] <= gtol,
+                  f"reference (nlspn) {opt} r{radius}: {rec}")
+            del gm, cm
+    emit({"phase": "reference (nlspn)", "what": "NLSPN resnet18, prop_time 3, 2 x 32x48, card "
+          "vs CPU: every output (relative max error), one training step (loss, per-leaf "
+          "gradient RMS distance)", **ref, "seconds": time.perf_counter() - t0})
+
+    # ---- 13. serve the recipe's model: 8 x 240x1216, 3 requests after one
+    # warm-up, at radius 6 and at radius 0
+    def nlspn_cfg(**kw):
+        return port.Config(model_name="NLSPN", network="resnet34", prop_time=18, prop_kernel=3,
+                           affinity="TGASS", affinity_gamma=0.5, conf_prop=True,
+                           patch_height=H_N, patch_width=W_N, top_crop=100, test_crop=True,
+                           max_depth=90.0, loss="1.0*L1+1.0*L2", opt_level="O0", seed=7240,
+                           **kw).finalize()
+
+    def request(g):
+        depth = torch.rand(B_N, H_N, W_N, 1, generator=g, device=dev) * 79 + 1
+        return {"rgb": torch.randn(B_N, H_N, W_N, 3, generator=g, device=dev),
+                "dep": depth * (torch.rand(B_N, H_N, W_N, 1, generator=g, device=dev) < 0.05),
+                "gt": depth * (torch.rand(B_N, H_N, W_N, 1, generator=g, device=dev) < 0.3)}
+
+    def request_parts(model, batch):
+        """Device ms of one request by part; the propagation's operands."""
+        prop = model.prop_layer
+        with torch.no_grad():
+            (pred_init, guide, conf), enc = timed(lambda: model.heads(batch))
+
+            def offset_aff():
+                offset, aff = prop.offset_affinity(guide, conf)
+                return offset, aff, prop.stencil(offset, aff, pred_init.dtype)
+
+            (offset, aff, stencil), oa = timed(offset_aff)
+            _, pr = timed(lambda: prop.propagate(pred_init, offset, aff, stencil, batch["dep"]))
+        return ({"encoder_decoder_ms": enc, "offset_affinity_stencil_ms": oa,
+                 "propagation_ms": pr}, (pred_init, offset, aff))
+
+    serve = {}
+    operands = None
+    for radius in (6, 0):
+        t_phase = t0 = time.perf_counter()
+        cfg = nlspn_cfg(prop_stencil_radius=radius)
+        model = port.build_model(cfg)
+        randomize_offset_conv(torch, model, 7240, 3.0)
+        step = port.make_eval_step(model)
+        n_params = sum(p.numel() for p in model.parameters())
+        sync()
+        build_s = time.perf_counter() - t0
+        g = torch.Generator(device=dev).manual_seed(7240)
+        warm = request(g)
+        t0 = time.perf_counter()
+        step(warm)
+        sync()
+        warm_s = time.perf_counter() - t0
+        batches = [request(g) for _ in range(3)]
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        lat, rows = [], []
+        for batch in batches:
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            pred, met, _ = step(batch)
+            sync()
+            lat.append(1e3 * (time.perf_counter() - t0))
+            launches = dict(port.LAUNCHES)
+            check(launches == zero, f"serve-nlspn r{radius} launch counts {launches}")
+            check(tuple(pred.shape) == (B_N, H_N, W_N, 1) and bool(torch.isfinite(pred).all())
+                  and bool(torch.isfinite(met).all()), f"serve-nlspn r{radius} not finite")
+            rows.append(met[0].tolist())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        parts, ops = request_parts(model, batches[0])
+        if radius == 6:
+            operands = ops
+        if radius == 6:
+            # PyTorch's default for cuDNN, which the command line keeps:
+            # f32 convolutions on the tensor cores in TF32
+            torch.backends.cudnn.allow_tf32 = True
+            step(warm)
+            sync()
+            tf32_ms = []
+            for batch in batches:
+                t0 = time.perf_counter()
+                pred32, _, _ = step(batch)
+                sync()
+                tf32_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.backends.cudnn.allow_tf32 = False
+            tf32 = {"latency_ms": tf32_ms, "pred_rel_err_vs_f32": rel(pred32, pred)}
+        path_launches[f"serve-nlspn-r{radius}"] = launches
+        serve[radius] = {"phase": "serve-nlspn", "radius": radius,
+                         "config": "NLSPN resnet34 prop_time 18 TGASS conf_prop O0",
+                         "batch": B_N, "image": [H_N, W_N], "params": n_params,
+                         "build_s": build_s, "warmup_s": warm_s, "latency_ms": lat,
+                         "frames_per_s": B_N * len(lat) / (sum(lat) / 1e3),
+                         "max_memory_allocated_gb": peak, "metric_rows": rows,
+                         "breakdown": parts, "launches_per_request": launches,
+                         "offset_beyond_6": float((ops[1].abs() > 6).float().mean()),
+                         **({"tf32_convolutions": tf32} if radius == 6 else {}),
+                         "seconds": time.perf_counter() - t_phase}
+        emit(serve[radius])
+        if radius == 6:
+            prop6 = model.prop_layer
+        del step, batches, warm
+        sync()
+
+    # the two radii on the serve batch's own operands with the offsets held
+    # to [-6, 6], where the stencil is exact: every pixel of pred agrees
+    pred_init, offset, aff = operands
+    off_c = offset.clamp(-6, 6)
+    with torch.no_grad():
+        p6, _ = prop6.propagate(pred_init, off_c, aff, prop6.stencil(off_c, aff, pred_init.dtype))
+        p0, _ = model.prop_layer.propagate(pred_init, off_c, aff, None)
+    agree = rel(p6, p0)
+    check(agree <= 1e-4, f"serve-nlspn: radius 6 vs 0 on offsets within 6: {agree}")
+
+    # one propagation step alone at each radius, and the least time the card
+    # could take for it: the operands read once, the map written once
+    def step_ms(fn, n=10):
+        for _ in range(2):
+            fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / n
+
+    from diffusiondepth_tpu_torch.ops.deform_conv import modulated_deform_conv
+    from diffusiondepth_tpu_torch.ops.stencil_prop import build_stencil, stencil_apply
+
+    px = B_N * H_N * W_N
+    with torch.no_grad():
+        M = build_stencil(offset, aff, 6)
+        ones = torch.ones(3, 3, 1, 1, device=dev)
+        prop_rec = {
+            "phase": "propagation", "shape": [B_N, H_N, W_N],
+            "stencil_step_ms": step_ms(lambda: stencil_apply(M, pred_init, 6)),
+            "stencil_build_ms": step_ms(lambda: build_stencil(offset, aff, 6), 3),
+            "gather_step_ms": step_ms(lambda: modulated_deform_conv(pred_init, offset, aff, ones,
+                                                                    padding=1)),
+            # stencil: M (256 f32) + the map in and out; gather: 18 offsets +
+            # 9 affinities + the map in and out, per pixel
+            "stencil_step_bound_ms": 1e3 * px * (256 + 2) * 4 / HBM_BYTES_PER_S,
+            "gather_step_bound_ms": 1e3 * px * (18 + 9 + 2) * 4 / HBM_BYTES_PER_S,
+            "stencil_step_flops": 2 * 256 * px, "gather_step_flops": 9 * 4 * 3 * px,
+            "agree_rel_err_offsets_within_6": agree}
+        del M
+    emit(prop_rec)
+    del model, prop6, operands, pred_init, offset, aff, off_c, p6, p0
+    sync()
+
+    # ---- 14. train the recipe's model: global batch 8 at 240x1216,
+    # 1.0*L1+1.0*L2, Adam, radius 6; one warm-up and 2 timed steps
+    t_phase = t0 = time.perf_counter()
+    tcfg = nlspn_cfg(prop_stencil_radius=6, optimizer="ADAM", batch_size=B_N)
+    model = port.build_model(tcfg)
+    randomize_offset_conv(torch, model, 7240, 3.0)
+    optimizer = port.make_optimizer(tcfg, 100, model)
+    lc = port.LossComputer(tcfg)
+    step = port.make_train_step(model, lc, optimizer)
+    sync()
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(7240)
+    t0 = time.perf_counter()
+    step(request(g))
+    sync()
+    warm_s = time.perf_counter() - t0
+    batches = [request(g) for _ in range(2)]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms_, terms = [], []
+    for batch in batches:
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, loss_val, met = step(batch)
+        sync()
+        step_ms_.append(1e3 * (time.perf_counter() - t0))
+        t_launches = dict(port.LAUNCHES)
+        check(t_launches == zero, f"train-nlspn launch counts {t_launches}")
+        check(bool(torch.isfinite(loss_val).all()) and bool(torch.isfinite(met).all()),
+              f"train-nlspn step not finite: {loss_val} {met}")
+        terms.append(loss_val[0].tolist())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    groups = {"encoder": ("conv1_", "conv2.", "conv3.", "conv4.", "conv5.", "conv6."),
+              "decoders": ("dec", "id_dec", "gd_dec", "cf_dec"),
+              "conv_offset_aff": ("prop_layer.conv_offset_aff",),
+              "aff_scale_const": ("prop_layer.aff_scale_const",)}
+    gsum = {k: 0.0 for k in groups}
+    for n_, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"train-nlspn: no or non-finite gradient in {n_}")
+        for k, prefixes in groups.items():
+            if n_.startswith(prefixes):
+                gsum[k] += p.grad.abs().sum().item()
+    check(all(v > 0 for v in gsum.values()), f"train-nlspn: zero gradients in a part: {gsum}")
+
+    # where the time of one step goes, device time by part
+    def train_parts(batch):
+        parts = {}
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        prop = model.prop_layer
+        (pred_init, guide, conf), parts["encoder_decoder_fwd_ms"] = timed(
+            lambda: model.heads(batch))
+
+        def offset_aff():
+            offset, aff = prop.offset_affinity(guide, conf)
+            return offset, aff, prop.stencil(offset, aff, pred_init.dtype)
+
+        (offset, aff, stencil), parts["offset_affinity_stencil_fwd_ms"] = timed(offset_aff)
+        (y, _), parts["propagation_fwd_ms"] = timed(
+            lambda: prop.propagate(pred_init, offset, aff, stencil, batch["dep"]))
+        loss, parts["loss_ms"] = timed(
+            lambda: lc(batch, {"pred": torch.clamp_min(y, 0.0)})[0] / B_N)
+        cot = torch.autograd.grad(loss, y, retain_graph=True)[0]
+        _, parts["backward_ms"] = timed(loss.backward)
+        _, parts["optimizer_ms"] = timed(optimizer.step)
+        parts["sum_ms"] = sum(parts.values())
+        # the propagation's share of the backward: the stencil build and the
+        # 18 steps alone, from detached operands, under the same cotangent
+        leaves = [t.detach().requires_grad_() for t in (pred_init, offset, aff)]
+        st = prop.stencil(leaves[1], leaves[2], pred_init.dtype)
+        y2, _ = prop.propagate(leaves[0], leaves[1], leaves[2], st, batch["dep"])
+        _, parts["of_which_propagation_bwd_ms"] = timed(lambda: y2.backward(cot))
+        return parts
+
+    emit({"phase": "train-nlspn", "config": "NLSPN resnet34 prop_time 18 TGASS conf_prop O0 "
+          "radius 6 1.0*L1+1.0*L2 ADAM", "global_batch": B_N, "crop": [H_N, W_N],
+          "build_s": build_s, "warmup_s": warm_s, "step_ms": step_ms_,
+          "samples_per_s": B_N * len(step_ms_) / (sum(step_ms_) / 1e3),
+          "max_memory_allocated_gb": peak, "loss_rows": terms, "grad_abs_sum": gsum,
+          "gamma": model.prop_layer.aff_scale_const.item(),
+          "breakdown": train_parts(batches[0]), "launches_per_step": t_launches,
+          "seconds": time.perf_counter() - t_phase})
+    path_launches["train-nlspn"] = t_launches
+    del model, optimizer, step, batches, batch
+    sync()
+
+    # ---- 15. main's train -> val -> test, --test_only and --resume with the
+    # recipe's flags on the KITTI-DC tree: NLSPNSummary's logs, gamma scalar
+    # and panels, on the card
+    path_launches["cli-nlspn"] = cli_phase(port, torch, dev, {}, {}, flags=NLSPN_FLAGS,
+                                           phase="cli-nlspn")
+    check(path_launches["cli-nlspn"] == zero, "cli-nlspn launched a kernel")
+    return path_launches
 
 
 def main() -> int:
@@ -1790,6 +2173,9 @@ def main() -> int:
         path_launches["cli"] = cli_phase(port, torch, dev, t_expect, {
             "conv_link": 6 * STEPS, "ddim_step": STEPS,
             "window_attention": sum(SWIN_L["depths"])})
+
+        # ---- 12-15. NLSPN, the CLI's default model
+        path_launches.update(nlspn_phases(port, torch, dev))
 
     # (route, source, TPU kernel, the path whose run counts its launches:
     # the path at whose shapes the kernel phase timed it). K1 and K4 run on

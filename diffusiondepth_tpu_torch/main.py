@@ -2,8 +2,11 @@
 
     python -m diffusiondepth_tpu_torch.main --data_name KITTIDC ...
 
-The same flags (``config.py``), the same epoch loop and the same files as
-the JAX package's ``main``:
+The same flags (``config.py``), the same models (``Diffusion_DCbase_``
+and ``NLSPN``, the default), the same epoch loop and the same files as the
+JAX package's ``main``. The eval passes fetch the outputs that the
+summary class names in ``SAVE_KEYS`` (NLSPN's propagation internals) for
+its panels and per-sample files:
 
 * ``train``: per epoch, the training steps (``make_train_step``), the
   epoch's loss and metric logs, a checkpoint (``model_{epoch:05d}.ckpt``,
@@ -90,15 +93,20 @@ def _build_state(cfg: Config, dev: torch.device, steps_per_epoch: int):
     return state
 
 
+def _host_output(pred: torch.Tensor, extras: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The eval step's pred and extras as f32 numpy arrays, for the writers."""
+    return {k: v.detach().float().cpu().numpy() for k, v in {"pred": pred, **extras}.items()}
+
+
 def _eval_pass(eval_step, loader, writer, dev, generator, times):
     """One pass over a split: metric rows to ``writer``; returns the last
     (batch, output) for the panel."""
     last = None
     for batch in loader:
         t0 = time.perf_counter()
-        pred, metric_val, _ = eval_step(_device_batch(batch, dev), generator=generator)
+        pred, metric_val, extras = eval_step(_device_batch(batch, dev), generator=generator)
         writer.add(metric=metric_val.cpu().numpy())
-        last = (batch, {"pred": pred.float().cpu().numpy()})
+        last = (batch, _host_output(pred, extras))
         times.append(time.perf_counter() - t0)
     return last or (None, None)
 
@@ -148,8 +156,8 @@ def train(args: Config, device=None):
                          f"{cfg.accum_steps}")
     train_step = make_train_step(state.model, LossComputer(cfg), state.optimizer,
                                  accum_steps=cfg.accum_steps)
-    eval_step = make_eval_step(state.model)
     summary_cls = get_summary(cfg)
+    eval_step = make_eval_step(state.model, extra_keys=getattr(summary_cls, "SAVE_KEYS", ()))
     writer_train, writer_val, writer_test = (summary_cls(cfg.save_dir, m, cfg)
                                              for m in ("train", "val", "test"))
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -213,7 +221,8 @@ def test(args: Config, device=None):
         print(f"loaded checkpoint {cfg.pretrain}")
 
     summary_cls = get_summary(cfg)
-    eval_step = make_eval_step(state.model, tta_flip=cfg.tta_flip)
+    eval_step = make_eval_step(state.model, tta_flip=cfg.tta_flip,
+                               extra_keys=getattr(summary_cls, "SAVE_KEYS", ()))
     writer = summary_cls(cfg.save_dir, "test", cfg)
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -223,7 +232,7 @@ def test(args: Config, device=None):
         bsz = batch["rgb"].shape[0]
         _sync(dev)
         t0 = time.time()
-        pred, metric_val, _ = eval_step(dbatch, generator=generator)
+        pred, metric_val, extras = eval_step(dbatch, generator=generator)
         _sync(dev)
         t1 = time.time()
         state.timings["test_s"].append(t1 - t0)
@@ -234,7 +243,7 @@ def test(args: Config, device=None):
         writer.add(metric=metric_val.cpu().numpy())
         if cfg.save_image:
             # save() takes the dataset index of the batch's first sample
-            writer.save(0, n_seen, batch, {"pred": pred.float().cpu().numpy()})
+            writer.save(0, n_seen, batch, _host_output(pred, extras))
         n_seen += bsz
     writer.update(0, None, None)
     if n:

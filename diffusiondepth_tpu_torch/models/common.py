@@ -68,6 +68,8 @@ def act_fn(x: torch.Tensor, name: Optional[str], negative_slope: float = 0.2) ->
         return F.relu(x)
     if name == "leaky_relu":
         return F.leaky_relu(x, negative_slope)
+    if name == "sigmoid":
+        return torch.sigmoid(x)
     raise ValueError(name)
 
 
@@ -118,35 +120,51 @@ def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Te
 
 
 class ConvBNAct(nn.Sequential):
-    """Conv2d (no bias) + BatchNorm [+ activation], children ``0`` (conv)
-    and ``1`` (bn) as in the reference's ``nn.Sequential``."""
+    """Conv2d [+ BatchNorm] [+ activation], children ``0`` (conv) and ``1``
+    (bn) as in the reference's ``nn.Sequential``. The conv has a bias only
+    when BatchNorm is off (``use_bn=False``: the reference ``conv_bn_relu``
+    with ``bn=False``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  padding: int = 0, act: Optional[str] = "leaky_relu",
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(nn.Conv2d(cin, cout, kernel, stride, padding, bias=False),
-                         BatchNorm2d(cout))
+                 dtype: Optional[torch.dtype] = None, use_bn: bool = True):
+        layers = [nn.Conv2d(cin, cout, kernel, stride, padding, bias=not use_bn)]
+        if use_bn:
+            layers.append(BatchNorm2d(cout))
+        super().__init__(*layers)
         self.act = act
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv, bn = self
-        y = conv2d_nhwc(x, conv.weight, None, conv.stride, conv.padding, self.dtype)
-        return act_fn(bn(y, self.dtype), self.act)
+        conv = self[0]
+        y = conv2d_nhwc(x, conv.weight, conv.bias, conv.stride, conv.padding, self.dtype)
+        if len(self) > 1:
+            y = self[1](y, self.dtype)
+        return act_fn(y, self.act)
+
+
+# kernel -> the torch (padding, output_padding) of an exact 2x upsampling
+_DECONV_PAD = {2: (0, 0), 3: (1, 1), 4: (1, 0)}
 
 
 class DeconvBNAct(nn.Sequential):
-    """ConvTranspose2d k2 s2 (exact 2x upsampling, no bias) + BatchNorm +
-    ReLU, children ``0`` (deconv) and ``1`` (bn): the FPN up-path."""
+    """ConvTranspose2d, stride 2 (exact 2x upsampling, no bias) + BatchNorm
+    + activation, children ``0`` (deconv) and ``1`` (bn). The defaults are
+    the FPN up-path's k2 + ReLU; NLSPN's decoder (the reference
+    ``convt_bn_relu``) is k3, padding 1, output padding 1 + LeakyReLU(0.2)."""
 
-    def __init__(self, cin: int, cout: int, dtype: Optional[torch.dtype] = None):
-        super().__init__(nn.ConvTranspose2d(cin, cout, 2, 2, bias=False), BatchNorm2d(cout))
+    def __init__(self, cin: int, cout: int, dtype: Optional[torch.dtype] = None,
+                 kernel: int = 2, act: Optional[str] = "relu"):
+        super().__init__(nn.ConvTranspose2d(cin, cout, kernel, 2, bias=False), BatchNorm2d(cout))
         self.dtype = dtype
+        self.kernel = kernel
+        self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         deconv, bn = self
-        y = conv_transpose2d_nhwc(x, deconv.weight, None, 2, 0, 0, self.dtype)
-        return F.relu(bn(y, self.dtype))
+        pad, out_pad = _DECONV_PAD[self.kernel]
+        y = conv_transpose2d_nhwc(x, deconv.weight, None, 2, pad, out_pad, self.dtype)
+        return act_fn(bn(y, self.dtype), self.act)
 
 
 def group_norm_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

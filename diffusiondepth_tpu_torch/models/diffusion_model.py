@@ -1,5 +1,6 @@
-"""Composed DiffusionDepth model, backbone + DDIM head (port of
-``diffusiondepth_tpu/models/diffusion_model.py`` for ``Diffusion_DCbase_``).
+"""Composed DiffusionDepth model, backbone + DDIM head, and the model
+factory (port of ``diffusiondepth_tpu/models/diffusion_model.py`` for
+``Diffusion_DCbase_`` and ``NLSPN``).
 
 Three backbone families are ported: ``mmbev_resnet`` (``mmbev_res18/50/101``,
 default head ``DDIMDepthEstimate_Res``), ``swin`` (every Swin name, default
@@ -18,6 +19,7 @@ from ..device import resolve_device
 from ..registry import BACKBONES, HEADS
 from .backbones import mmbev_resnet, mpvit, swin  # noqa: F401  (register the backbones)
 from .heads import ddim_head  # noqa: F401  (registers the heads)
+from .nlspn import NLSPNModel
 
 # the default head of each backbone module when head_specify is not given
 _DEFAULT_HEAD = {
@@ -68,39 +70,49 @@ class Diffusion_DCbase_Model(nn.Module):
                                init_latent=init_latent, generator=generator)
 
 
-def build_model(cfg, device: Union[str, torch.device, None] = None) -> Diffusion_DCbase_Model:
+def build_model(cfg, device: Union[str, torch.device, None] = None) -> nn.Module:
     """The model of ``cfg`` with weights drawn from ``cfg.seed``, on the
-    card unless ``device="cpu"``; in eval mode. ``cfg.use_pallas``,
-    ``cfg.fused_window_attention`` and ``cfg.remat_backbone`` choose the
-    Swin backbone's attention route and block rematerialisation;
-    ``cfg.fused_denoiser`` lets the denoiser take the fused chain where its
-    guard holds."""
+    card unless ``device="cpu"``; in eval mode. ``Diffusion_DCbase_``:
+    ``cfg.use_pallas``, ``cfg.fused_window_attention`` and
+    ``cfg.remat_backbone`` choose the Swin backbone's attention route and
+    block rematerialisation; ``cfg.fused_denoiser`` lets the denoiser take
+    the fused chain where its guard holds. ``NLSPN``: ``NLSPNModel`` with
+    ``cfg.network``, the affinity options and ``cfg.prop_stencil_radius``.
+    ``--opt_level`` O1-O3 compute in bf16."""
     dev = resolve_device(device)
-    if cfg.model_name != "Diffusion_DCbase_":
+    dtype = cfg.compute_dtype if cfg.dtype == "bfloat16" else None
+    if cfg.model_name == "NLSPN":
+        def make():
+            return NLSPNModel(cfg, dtype=dtype)
+    elif cfg.model_name == "Diffusion_DCbase_":
+        if cfg.backbone_module not in _DEFAULT_HEAD:
+            raise NotImplementedError(
+                f"backbone_module {cfg.backbone_module!r} is not ported; "
+                f"ported: {sorted(_DEFAULT_HEAD)}")
+        head = cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module]
+        hic = cfg.head_in_channels
+        if isinstance(hic, str):
+            hic = tuple(int(c) for c in hic.split(","))
+
+        def make():
+            return Diffusion_DCbase_Model(
+                backbone_name=cfg.backbone_name,
+                backbone_module=cfg.backbone_module,
+                head_name=head,
+                inference_steps=cfg.inference_steps,
+                num_train_timesteps=cfg.num_train_timesteps,
+                timestep_schedule=cfg.timestep_schedule,
+                head_in_channels=hic,
+                use_pallas=cfg.use_pallas and cfg.backbone_module == "swin",
+                fused_window_attention=cfg.fused_window_attention,
+                remat_backbone=cfg.remat_backbone,
+                use_fused_denoiser=cfg.fused_denoiser,
+                dtype=dtype,
+            )
+    else:
         raise NotImplementedError(
             f"model_name {cfg.model_name!r} is not ported yet (ROADMAP Queue 1)")
-    if cfg.backbone_module not in _DEFAULT_HEAD:
-        raise NotImplementedError(
-            f"backbone_module {cfg.backbone_module!r} is not ported; "
-            f"ported: {sorted(_DEFAULT_HEAD)}")
-    head = cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module]
-    hic = cfg.head_in_channels
-    if isinstance(hic, str):
-        hic = tuple(int(c) for c in hic.split(","))
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), dev:
         torch.manual_seed(cfg.seed)
-        model = Diffusion_DCbase_Model(
-            backbone_name=cfg.backbone_name,
-            backbone_module=cfg.backbone_module,
-            head_name=head,
-            inference_steps=cfg.inference_steps,
-            num_train_timesteps=cfg.num_train_timesteps,
-            timestep_schedule=cfg.timestep_schedule,
-            head_in_channels=hic,
-            use_pallas=cfg.use_pallas and cfg.backbone_module == "swin",
-            fused_window_attention=cfg.fused_window_attention,
-            remat_backbone=cfg.remat_backbone,
-            use_fused_denoiser=cfg.fused_denoiser,
-            dtype=cfg.compute_dtype if cfg.dtype == "bfloat16" else None,
-        )
+        model = make()
     return model.eval()

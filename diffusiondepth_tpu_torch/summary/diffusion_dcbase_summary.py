@@ -29,6 +29,17 @@ IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 
+def _slice_sample(arr: np.ndarray, b: int, batch: int) -> np.ndarray:
+    """Sample ``b`` of an output entry: (B, ...) entries on axis 0, the
+    stacked (T, B, ...) ones (NLSPN's ``pred_inter``) on axis 1, entries
+    without a batch axis (``gamma``, (1,)) whole."""
+    if arr.ndim >= 1 and arr.shape[0] == batch:
+        return arr[b]
+    if arr.ndim >= 2 and arr.shape[1] == batch:
+        return arr[:, b]
+    return arr
+
+
 class Diffusion_DCbase_Summary(BaseSummary):
     def __init__(self, log_dir: str, mode: str, args, loss_name=None, metric_name=None):
         super().__init__(log_dir, mode, args)
@@ -95,14 +106,20 @@ class Diffusion_DCbase_Summary(BaseSummary):
     def save(self, epoch: int, idx: int, sample: Dict, output: Dict):
         """Write the files of every sample of the batch. ``idx`` is the
         dataset index of the batch's first sample; sample ``b`` is written
-        as index ``idx + b``."""
+        as index ``idx + b``. Output entries beside ``pred`` (NLSPN's
+        propagation internals) reach ``_save_one`` sliced per sample."""
         preds = np.clip(np.asarray(output["pred"], np.float32)[..., 0], 0, None)
-        for b in range(preds.shape[0]):
+        n = preds.shape[0]
+        extras_all = {k: np.asarray(v) for k, v in output.items()
+                      if k != "pred" and v is not None}
+        for b in range(n):
+            extras = {k: _slice_sample(v, b, n) for k, v in extras_all.items()}
             self._save_one(epoch, idx + b,
                            {k: np.asarray(v)[b] for k, v in sample.items()
-                            if getattr(v, "ndim", 0) >= 1}, preds[b])
+                            if getattr(v, "ndim", 0) >= 1}, preds[b], extras or None)
 
-    def _save_one(self, epoch: int, idx: int, sample: Dict, pred: np.ndarray):
+    def _save_one(self, epoch: int, idx: int, sample: Dict, pred: np.ndarray,
+                  extras: Optional[Dict] = None):
         self.make_dir(epoch, idx)
         if self.args.save_result_only:
             # the KITTI submission format

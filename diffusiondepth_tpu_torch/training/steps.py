@@ -9,7 +9,7 @@ global batch once, before the single optimizer update.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -73,7 +73,7 @@ def _hflip_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def make_eval_step(model, tta_flip: bool = False) -> Callable:
+def make_eval_step(model, tta_flip: bool = False, extra_keys: Sequence[str] = ()) -> Callable:
     """Returns ``eval_step(batch, generator=None, init_latent=None) ->
     (pred, metric_row, extras)``.
 
@@ -82,7 +82,9 @@ def make_eval_step(model, tta_flip: bool = False) -> Callable:
     tensors must be there too). The starting
     latent comes from ``generator`` (a ``torch.Generator`` on that device)
     unless ``init_latent`` fixes it. No ddim_loss is computed at eval.
-    ``extras`` is empty: no output of this slice's model needs it.
+    ``extras`` holds the model output's entries named in ``extra_keys``
+    (NLSPN's propagation internals for its summary, ``SAVE_KEYS``); a key
+    the output lacks, or holds as None, is left out.
 
     ``tta_flip=True`` is the leaderboard protocol's flip ensemble: every
     entry of the batch is concatenated with its mirror along W (entries
@@ -109,6 +111,7 @@ def make_eval_step(model, tta_flip: bool = False) -> Callable:
         else:
             out = model(batch, init_latent=init_latent, generator=generator)
         metric_val = evaluate_depth_metrics(batch, out)
-        return out["pred"], metric_val, {}
+        extras = {k: out[k] for k in extra_keys if out.get(k) is not None}
+        return out["pred"], metric_val, extras
 
     return eval_step

@@ -4,7 +4,9 @@ The inverse of ``diffusiondepth_tpu/utils/convert_torch_checkpoint.py``'s
 ``convert_reference_model`` for ``Diffusion_DCbase_``: a Swin, mmbev ResNet
 (Basic, Bottleneck or CBAM blocks) or MPViT backbone under the DDIM head
 (FPN, ``DeepDepthTransformWithUpsampling``, ``ScheduledCNNRefine`` with or
-without the 'upsample_add' convs, the HAHI conv path). Each family's
+without the 'upsample_add' convs, the HAHI conv path); and of its
+``convert_nlspn`` for ``NLSPN`` (its torchvision BasicBlock stages, the
+conv/deconv + BN heads, the propagation layer). Each family's
 registered names share one tree layout; only widths and depths differ. The
 tree of a standalone ``models/common.py::LayerNorm`` maps onto that
 module's state dict. It takes the flax ``params`` and ``batch_stats``
@@ -237,6 +239,38 @@ def _head(out, pre, p, s):
             _conv_bn(out, f"{h}{key}.0.conv", f"{h}{key}.0.bn", hp[key], hs.get(key))
 
 
+# NLSPN's ConvBNAct (conv [+ BN]) and DeconvBNAct (deconv + BN) modules
+_NLSPN_CONV = ("conv1_rgb", "conv1_dep", "conv6", "id_dec1", "id_dec0", "gd_dec1", "gd_dec0",
+               "cf_dec1", "cf_dec0")
+_NLSPN_DECONV = ("dec5", "dec4", "dec3", "dec2")
+
+
+def _nlspn(out, p, s):
+    """``models/nlspn.py::NLSPNModel``: the reference NLSPN's names."""
+    for key, v in p.items():
+        vs = s.get(key, {})
+        if key in _NLSPN_CONV:
+            _conv_bn(out, key + ".0", key + ".1" if "BatchNorm_0" in v else None, v, vs)
+        elif key in _NLSPN_DECONV:
+            _conv_bn(out, key + ".0", key + ".1", v, vs, deconv=True)
+        elif re.fullmatch(r"conv[2-5]", key):
+            for bk, bv in v.items():
+                j = re.fullmatch(r"block(\d+)", bk).group(1)
+                b, bs = f"{key}.{j}", vs.get(bk, {})
+                for i in (0, 1):
+                    _conv(out, f"{b}.conv{i + 1}", bv[f"Conv_{i}"])
+                    _bn_at(out, f"{b}.bn{i + 1}", bv[f"BatchNorm_{i}"], bs.get(f"BatchNorm_{i}"))
+                if "downsample_conv" in bv:
+                    _conv(out, b + ".downsample.0", bv["downsample_conv"])
+                    _bn_at(out, b + ".downsample.1", bv["downsample_bn"], bs.get("downsample_bn"))
+        elif key == "prop_layer":
+            _conv(out, "prop_layer.conv_offset_aff", v["conv_offset_aff"])
+            if "aff_scale_const" in v:
+                out["prop_layer.aff_scale_const"] = v["aff_scale_const"]
+        else:
+            raise ValueError(f"unknown NLSPN subtree {key!r}")
+
+
 def _backbone(out, pre, p, s):
     if "patch_embed" in p:
         _swin(out, pre, p)
@@ -256,8 +290,10 @@ def _n_leaves(tree) -> int:
 
 def jax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[str, torch.Tensor]:
     """Flax ``params`` / ``batch_stats`` of ``Diffusion_DCbase_Model`` (a
-    Swin, ResNet or MPViT backbone + DDIM head) -> the port's
-    ``state_dict`` (f32 tensors). Without ``batch_stats`` the running
+    Swin, ResNet or MPViT backbone + DDIM head) or of ``NLSPNModel`` (a
+    tree with ``prop_layer``) -> the port's ``state_dict`` (f32 tensors).
+    NLSPN under TC keeps its constant scale outside the JAX tree; the
+    port's ``prop_layer.aff_scale_const`` buffer is then left out. Without ``batch_stats`` the running
     statistics are left out, so a gradient tree (the ``params`` layout)
     maps leaf by leaf onto the port's parameter names; ``batch_stats``
     after a training step maps onto the running statistics. Raises on a
@@ -267,6 +303,8 @@ def jax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[
     known = {"depth_backbone", "depth_head"}
     if set(params) == {"scale", "bias"}:  # a standalone LayerNorm
         out = {"weight": params["scale"], "bias": params["bias"]}
+    elif "prop_layer" in params:
+        _nlspn(out, params, batch_stats)
     elif not set(params) <= known or not set(batch_stats) <= known:
         raise ValueError(f"unknown parameter tree with keys {sorted(set(params) | set(batch_stats))}")
     if "depth_backbone" in params:

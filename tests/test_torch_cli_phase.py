@@ -36,3 +36,22 @@ def test_cli_phase_runs_on_the_cpu(capsys):
     assert len(train["step_ms"]) == 2 and len(train["loader_wait_share"]) == 2
     assert test_only["reload_bit_equal"] and test_only["submission_pngs"] == 8
     assert resume["epochs_logged"] == ["0002"] and resume["optimizer_count"] == 4
+
+
+NLSPN_MICRO = ["--model_name", "NLSPN", "--network", "resnet18", "--prop_time", "2",
+               "--patch_height", "64", "--patch_width", "96", "--top_crop", "4",
+               "--loss", "1.0*L1+1.0*L2"]
+
+
+def test_cli_phase_runs_nlspn_on_the_cpu(capsys):
+    """Phase 15 (``cli-nlspn``) at the micro size: NLSPN through main's
+    training run (with its gamma scalar and 5-column panels checked),
+    --test_only and --resume, no kernel launched."""
+    launches = chip_smoke.cli_phase(port, torch, torch.device("cpu"), {}, {}, flags=NLSPN_MICRO,
+                                    tree=TREE, phase="cli-nlspn")
+    assert launches == {k: 0 for k in port.LAUNCHES}
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"phase": "cli-nlspn"')]
+    assert [line.get("run") for line in lines] == ["train", "loader", "test_only", "resume",
+                                                  None]
+    assert lines[2]["reload_bit_equal"] and lines[3]["optimizer_count"] == 4

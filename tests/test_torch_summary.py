@@ -164,8 +164,60 @@ def test_save_matches_jax(tmp_path, result_only, raw):
 
 
 def test_nlspn_summary_raises():
-    with pytest.raises(NotImplementedError, match="M14"):
-        get_summary(_args(model_name="NLSPN"))
+    """NLSPN resolves to NLSPNSummary (ported); a model without a summary
+    class raises."""
+    from diffusiondepth_tpu_torch.summary import NLSPNSummary
+
+    assert get_summary(_args(model_name="NLSPN")) is NLSPNSummary
+    with pytest.raises(NotImplementedError, match="NoSuchModelSummary"):
+        get_summary(_args(model_name="NoSuchModel"))
+
+
+def _nlspn_output(seed, b=3, h=12, w=20, steps=4):
+    rng = np.random.RandomState(seed)
+    return {"pred_init": (rng.rand(b, h, w, 1) * 95 - 2).astype(np.float32),
+            "pred_inter": (rng.rand(steps, b, h, w, 1) * 95).astype(np.float32),
+            "guidance": rng.randn(b, h, w, 8).astype(np.float32),
+            "offset": rng.randn(b, h, w, 18).astype(np.float32),
+            "aff": rng.randn(b, h, w, 9).astype(np.float32),
+            "gamma": np.asarray([4.25], np.float32),
+            "confidence": (rng.rand(b, h, w, 1) * 1.2 - 0.1).astype(np.float32)}
+
+
+@pytest.mark.parametrize("result_only", [False, True])
+def test_nlspn_summary_matches_jax(tmp_path, result_only):
+    """NLSPNSummary: the Etc/gamma scalar and the rgb | dep | pred | gt |
+    confidence panel of ``update`` (scalars file and event records, panel
+    pixels), and ``save``'s per-sample files (the propagation maps, the
+    gray copy, the raw dumps), against JAX's, exactly."""
+    args = _args(model_name="NLSPN", loss="1.0*L1+1.0*L2", save_result_only=result_only,
+                 save_raw_npdepth=True)
+    sample, output = _batch(7)
+    output.update(_nlspn_output(8))
+    for d, get in (("port", get_summary), ("jax", jget_summary)):
+        w = get(args)(str(tmp_path / d), "val", args)
+        w.add(metric=np.ones((1, 8), np.float32))
+        w.update(2, sample, output)
+        w.save(0, 4, sample, output)
+        w.writer.close()
+    a = (tmp_path / "port" / "scalars_val.jsonl").read_text()
+    assert a == (tmp_path / "jax" / "scalars_val.jsonl").read_text() and "Etc/gamma" in a
+    ours = read_records(_event_file(tmp_path / "port" / "val"))
+    ref = read_records(_event_file(tmp_path / "jax" / "val"))
+    assert len(ours) == len(ref) == 1 + 8 + 1 + 1
+    files = {}
+    for d in ("port", "jax"):
+        root = tmp_path / d / "val"
+        files[d] = sorted(os.path.relpath(os.path.join(r, f), root)
+                          for r, _, fs in os.walk(root) for f in fs if "tfevents" not in f)
+    per_sample = 2 if result_only else 6 + 4 + 5  # PNGs, 4 step maps, dumps
+    assert files["port"] == files["jax"] and len(files["port"]) == 1 + 3 * per_sample
+    for f in files["port"]:
+        a, b = tmp_path / "port" / "val" / f, tmp_path / "jax" / "val" / f
+        if f.endswith(".png"):
+            assert np.array_equal(read_png(str(a)), np.array(Image.open(b))), f
+        else:
+            assert np.array_equal(np.load(a), np.load(b)), f
 
 
 def test_metric_and_loss_factories_match_jax():
