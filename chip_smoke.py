@@ -123,6 +123,18 @@ Phases, one JSON line each:
              and aff_scale_const, 0 launches;
 15. cli-nlspn - phase 11 with the recipe's flags (--model_name NLSPN ...):
              NLSPNSummary's gamma scalar and 5-column panels on the card.
+16. cli-nyu - the CLI's default run, NLSPN on NYUv2 with its authors'
+             flags (resnet34, 18 steps, TGASS, conf_prop, --max_depth 10
+             --num_sample 500, batch 12 of the 228x304 crop): an NYU tree
+             written with the port's HDF5 writer (48 frames in the train
+             csv, split by the port's generate_json into 36 train and 12
+             val, and 12 test frames under val/official, all 480x640), one
+             file read back bit-equal; main.train for one epoch (3 steps, a
+             val and a test pass, finite logs), --test_only on the
+             checkpoint (bit-equal reload), the val split under --ip_basic,
+             the loader alone at 1 thread and a thread per core; step
+             times, each step's loader-wait share, eval seconds per batch,
+             peak memory, and 0 launches of every kernel.
 
 Then a line {"kernels": [...]}, the run's seconds and, last,
 {"ok": true, "device": {...}}.
@@ -138,6 +150,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -260,6 +273,69 @@ def write_kitti_tree(root: str, tree=None, seed: int = 0) -> None:
         json.dump(split, f)
 
 
+def run_main(port, torch, device, argv, save_dir, fn):
+    """``fn`` (``main.train`` or ``main.test``) on the config that ``argv``
+    parses to, saving under ``save_dir``, with the launch counts set to 0
+    just before: (cfg, state, launch counts, seconds)."""
+    from diffusiondepth_tpu_torch.config import parse_args
+
+    cfg = parse_args(argv)
+    cfg.save_dir = save_dir
+    port.reset_launch_counts()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = fn(cfg, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return cfg, state, dict(port.LAUNCHES), time.perf_counter() - t0
+
+
+def logged(path, names):
+    """The values of each line of a text log, checked to hold ``names`` in
+    order and finite values."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            pairs = [kv.split(": ") for kv in line.split("|", 2)[2].split("  ") if ": " in kv]
+            check([k.strip() for k, _ in pairs] == list(names),
+                  f"{path}: names {[k for k, _ in pairs]} != {names}")
+            vals = [float(v) for _, v in pairs]
+            check(all(math.isfinite(v) for v in vals), f"{path}: {line}")
+            rows.append(vals)
+    return rows
+
+
+def check_train_logs(cfg):
+    """The files of one ``main.train`` epoch under ``cfg.save_dir``: the
+    loss and metric logs (finite), the event files' records and CRCs
+    (``read_events`` checks both; NLSPN adds Etc/gamma at val and test) and
+    the val/test panels. Returns the logged loss rows."""
+    from diffusiondepth_tpu_torch.losses import get_loss_names
+    from diffusiondepth_tpu_torch.metrics import METRIC_NAMES
+    from diffusiondepth_tpu_torch.native.png import read_png
+    from diffusiondepth_tpu_torch.summary.tb_events import read_events
+
+    losses = logged(os.path.join(cfg.save_dir, "loss_train.txt"), get_loss_names(cfg))
+    for mode in ("train", "val", "test"):
+        logged(os.path.join(cfg.save_dir, f"metric_{mode}.txt"), METRIC_NAMES)
+    nlspn = cfg.model_name == "NLSPN"
+    n_records = {"train": 1 + len(get_loss_names(cfg)) + 8, "val": 1 + 8 + 1 + nlspn,
+                 "test": 1 + 8 + 1 + nlspn}
+    for mode, n in n_records.items():
+        (ev_file,) = [f for f in os.listdir(os.path.join(cfg.save_dir, mode))
+                      if f.startswith("events.out.tfevents")]
+        events = read_events(os.path.join(cfg.save_dir, mode, ev_file))
+        check(len(events) == n, f"{mode} event file: {len(events)} records != {n}")
+        check(events[0].get("file_version") == "brain.Event:2", "event file version")
+        if mode != "train":
+            panel = read_png(os.path.join(cfg.save_dir, mode, "images", "step_000001.png"))
+            cols = 5 if nlspn else 4  # rgb | dep | pred | gt (| confidence)
+            check(panel.shape[1] == cols * cfg.patch_width if mode == "val" else
+                  panel.shape[1] % cols == 0, f"{mode} panel {panel.shape}")
+    return losses
+
+
 def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tree=None,
               phase="cli") -> dict:
     """Phase 11: main's train -> val -> test loop on a KITTI-DC tree, then
@@ -276,12 +352,9 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
     import numpy as np
 
     from diffusiondepth_tpu_torch import main as pmain
-    from diffusiondepth_tpu_torch.config import parse_args
     from diffusiondepth_tpu_torch.data import DataLoader, get as get_data
-    from diffusiondepth_tpu_torch.losses import get_loss_names
     from diffusiondepth_tpu_torch.metrics import METRIC_NAMES
     from diffusiondepth_tpu_torch.native.png import read_png
-    from diffusiondepth_tpu_torch.summary.tb_events import read_events
 
     cuda = device.type == "cuda"
 
@@ -300,29 +373,7 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
                                      "--test_batch_size", "8", "--epochs", "1", "--save_full"]
 
         def run(argv, save_dir, fn):
-            cfg = parse_args(argv)
-            cfg.save_dir = os.path.join(root, save_dir)
-            port.reset_launch_counts()
-            sync()
-            t0 = time.perf_counter()
-            state = fn(cfg, device=device)
-            sync()
-            return cfg, state, dict(port.LAUNCHES), time.perf_counter() - t0
-
-        def logged(path, names):
-            """The values of each line of a text log, checked to hold ``names``
-            in order and finite values."""
-            rows = []
-            with open(path) as f:
-                for line in f:
-                    pairs = [kv.split(": ") for kv in line.split("|", 2)[2].split("  ")
-                             if ": " in kv]
-                    check([k.strip() for k, _ in pairs] == list(names),
-                          f"{path}: names {[k for k, _ in pairs]} != {names}")
-                    vals = [float(v) for _, v in pairs]
-                    check(all(math.isfinite(v) for v in vals), f"{path}: {line}")
-                    rows.append(vals)
-            return rows
+            return run_main(port, torch, device, argv, os.path.join(root, save_dir), fn)
 
         def expect(train_steps, eval_batches):
             return {k: train_steps * step_launches.get(k, 0)
@@ -337,25 +388,7 @@ def cli_phase(port, torch, device, step_launches, eval_launches, flags=None, tre
               f"{expect(2, 2)}")
         check(state.step == 2 and state.optimizer.count == 2, f"cli train: step {state.step}")
         tm = state.timings
-        losses = logged(os.path.join(cfg.save_dir, "loss_train.txt"), get_loss_names(cfg))
-        for mode in ("train", "val", "test"):
-            logged(os.path.join(cfg.save_dir, f"metric_{mode}.txt"), METRIC_NAMES)
-        # the event files: records and CRCs (read_events checks both)
-        # + Etc/gamma for NLSPN at val and test
-        nlspn = cfg.model_name == "NLSPN"
-        n_records = {"train": 1 + len(get_loss_names(cfg)) + 8, "val": 1 + 8 + 1 + nlspn,
-                     "test": 1 + 8 + 1 + nlspn}
-        for mode, n in n_records.items():
-            (ev_file,) = [f for f in os.listdir(os.path.join(cfg.save_dir, mode))
-                          if f.startswith("events.out.tfevents")]
-            events = read_events(os.path.join(cfg.save_dir, mode, ev_file))
-            check(len(events) == n, f"{mode} event file: {len(events)} records != {n}")
-            check(events[0].get("file_version") == "brain.Event:2", "event file version")
-            if mode != "train":
-                panel = read_png(os.path.join(cfg.save_dir, mode, "images", "step_000001.png"))
-                cols = 5 if nlspn else 4  # rgb | dep | pred | gt (| confidence)
-                check(panel.shape[1] == cols * cfg.patch_width if mode == "val" else
-                      panel.shape[1] % cols == 0, f"{mode} panel {panel.shape}")
+        losses = check_train_logs(cfg)
         ckpt = os.path.join(cfg.save_dir, "model_00001.ckpt")
         check(os.path.exists(ckpt), "no model_00001.ckpt")
         waits, steps = tm["wait_s"], tm["step_s"]
@@ -790,6 +823,224 @@ def nlspn_phases(port, torch, dev) -> dict:
                                            phase="cli-nlspn")
     check(path_launches["cli-nlspn"] == zero, "cli-nlspn launched a kernel")
     return path_launches
+
+
+# the NYUv2 tree of phase 16: frames of the train csv (split by generate_json
+# into train and val at NYU_VAL_RATIO) and of val/official (the test split),
+# at NYU's 480x640
+NYU_TREE = {"train": 48, "test": 12}
+NYU_HW = (480, 640)
+NYU_VAL_RATIO = 0.25
+# the reference's csv rows start with a 19-character prefix that
+# generate_nyu_json strips
+NYU_CSV_PREFIX = "/data/nyu_depth_v2/"
+# the CLI's default run: NLSPN with its authors' NYUv2 settings (resnet34,
+# 18 steps, TGASS with gamma 0.5, confidence propagation, f32), batch 12 of
+# the fixed 228x304 crop, 500 sparse points
+NYU_FLAGS = ["--model_name", "NLSPN", "--network", "resnet34", "--prop_time", "18",
+             "--prop_kernel", "3", "--affinity", "TGASS", "--affinity_gamma", "0.5",
+             "--conf_prop", "--max_depth", "10", "--num_sample", "500",
+             "--loss", "1.0*L1+1.0*L2", "--opt_level", "O0"]
+
+
+def write_nyu_tree(root: str, tree=None, hw=NYU_HW, seed: int = 0) -> dict:
+    """An NYUv2 tree under ``root`` in the files' own layout, written with
+    the port's HDF5 writer: ``tree["train"]`` frames under
+    ``train/scene_XX/`` (four scenes) listed in a train csv, and
+    ``tree["test"]`` under ``val/official/``; each file holds ``rgb`` (3, H,
+    W) uint8 (a smooth scene with noise) and ``depth`` (H, W) float32 of
+    0.5-10 m with ~20% holes. The split json (``split.json``) comes from
+    the port's ``generate_nyu_json``. One file is read back and must be
+    bit-equal to what was written. Returns the split."""
+    import numpy as np
+
+    from diffusiondepth_tpu_torch.native.hdf5 import read_datasets, write_datasets
+    from diffusiondepth_tpu_torch.tools.generate_json import generate_nyu_json
+
+    tree = tree or NYU_TREE
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    ramp = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    files = [f"train/scene_{i % 4:02d}/{i:05d}.h5" for i in range(tree["train"])]
+    files += [f"val/official/{i:05d}.h5" for i in range(tree["test"])]
+    written = None
+    for name in files:
+        os.makedirs(os.path.dirname(os.path.join(root, name)), exist_ok=True)
+        rgb = 200 * ramp[None] * rng.rand(3, 1, 1) + 40 * rng.rand(3, h, w)
+        depth = (0.5 + 9.0 * ramp + 0.5 * rng.rand(h, w)).astype(np.float32)
+        depth[rng.rand(h, w) < 0.2] = 0.0
+        arrays = {"rgb": rgb.astype(np.uint8), "depth": depth}
+        write_datasets(os.path.join(root, name), arrays)
+        written = written or (name, arrays)
+    back = read_datasets(os.path.join(root, written[0]), ("rgb", "depth"))
+    check(all(back[k].dtype == v.dtype and np.array_equal(back[k], v)
+              for k, v in written[1].items()), "HDF5 round trip is not bit-equal")
+    csv_train = os.path.join(root, "nyudepth_hdf5_train.csv")
+    with open(csv_train, "w") as f:
+        f.writelines(f"{NYU_CSV_PREFIX}{n}\n" for n in files if n.startswith("train/"))
+    csv_test = os.path.join(root, "nyudepth_hdf5_val.csv")
+    open(csv_test, "w").close()
+    split = generate_nyu_json(root, csv_train, csv_test, val_ratio=NYU_VAL_RATIO)
+    with open(os.path.join(root, "split.json"), "w") as f:
+        json.dump(split, f, indent=4)
+    return split
+
+
+def nyu_sample_stages(path, cfg, reps=5) -> dict:
+    """Median ms of each stage of one augmented NYU training sample on one
+    thread, in ``NYU.__getitem__``'s order (its draws fixed)."""
+    import random
+
+    import numpy as np
+
+    from diffusiondepth_tpu_torch.data import transforms as T
+    from diffusiondepth_tpu_torch.data.depth_completion import simple_depth_completion
+    from diffusiondepth_tpu_torch.data.ip_basic import densify_depth_map
+    from diffusiondepth_tpu_torch.data.nyu import CROP_SIZE
+    from diffusiondepth_tpu_torch.native.hdf5 import read_datasets
+
+    scale, degree = 1.25, 3.0
+    size = int(240 * scale)
+    stages = {
+        "hdf5_read": lambda x: read_datasets(path, ("rgb", "depth")),
+        "to_hwc": lambda f: (np.ascontiguousarray(f["rgb"].transpose(1, 2, 0)), f["depth"]),
+        "hflip": lambda x: (T.hflip(x[0]), T.hflip(x[1])),
+        "rotate_nearest": lambda x: (T.rotate(x[0], degree, T.NEAREST),
+                                     T.rotate(x[1], degree, T.NEAREST)),
+        "resize_rgb_bilinear": lambda x: (T.resize_shorter(x[0], size, T.BILINEAR), x[1]),
+        "color_jitter": lambda x: (T.color_jitter(x[0], 0.4, 0.4, 0.4, random.Random(0)), x[1]),
+        "resize_depth_bilinear": lambda x: (x[0], T.resize_shorter(x[1], size, T.BILINEAR)),
+        "center_crop_normalize": lambda x: (
+            T.rgb_to_normalized_array(T.center_crop(x[0], CROP_SIZE)),
+            T.depth_to_array(T.center_crop(x[1], CROP_SIZE)) / scale),
+        "sparse_sample": lambda x: T.sparse_sample(x[1], cfg.num_sample, random.Random(0)),
+        "scanline_completion": lambda d: (simple_depth_completion(d[..., 0]), d)[1],
+        "ip_basic_densify": lambda d: densify_depth_map(d[..., 0], (d[..., 0] > 0)),
+    }
+    out, x = {}, None
+    for name, fn in stages.items():
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            y = fn(x)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name], x = statistics.median(times), y
+    return out
+
+
+def cli_nyu_phase(port, torch, device, flags=None, tree=None, hw=NYU_HW, batch=12,
+                  phase="cli-nyu") -> dict:
+    """Phase 16: the CLI's default run, NLSPN on NYUv2, through main on an
+    NYU tree (``write_nyu_tree``): one epoch of training (the train split
+    in batches of ``batch``), a val and a test pass; --test_only on the
+    checkpoint (a bit-equal reload); the val split under --ip_basic through
+    main.test; the training loader alone at one thread and at a thread per
+    core. ``flags`` default to ``NYU_FLAGS``; the CPU tests rehearse the
+    phase at a small size. Every run must launch no kernel. Records are
+    emitted under ``phase``. Returns the training run's launch counts."""
+    import tempfile
+
+    from diffusiondepth_tpu_torch import main as pmain
+    from diffusiondepth_tpu_torch.data import DataLoader, get as get_data
+    from diffusiondepth_tpu_torch.metrics import METRIC_NAMES
+
+    cuda = device.type == "cuda"
+    zero = {k: 0 for k in port.LAUNCHES}
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="nyu_v2_")
+    try:
+        tree = tree or NYU_TREE
+        split = write_nyu_tree(root, tree, hw)
+        tree_s = time.perf_counter() - t_phase
+        n_val = int(tree["train"] * NYU_VAL_RATIO)
+        n_train = tree["train"] - n_val
+        check([len(split[m]) for m in ("train", "val", "test")] == [n_train, n_val, tree["test"]],
+              f"split sizes {[len(v) for v in split.values()]}")
+        data_flags = ["--data_name", "NYU", "--dir_data", root,
+                      "--split_json", os.path.join(root, "split.json"), *(flags or NYU_FLAGS)]
+        train_flags = data_flags + ["--batch_size", str(batch), "--test_batch_size", str(batch),
+                                    "--epochs", "1"]
+
+        def run(argv, save_dir, fn):
+            return run_main(port, torch, device, argv, os.path.join(root, save_dir), fn)
+
+        # ---- train: one epoch, a val and a test pass
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        cfg, state, launches, train_s = run(train_flags, "train", pmain.train)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        check(launches == zero, f"{phase} train launched a kernel: {launches}")
+        steps = n_train // batch
+        check(state.step == steps, f"{phase} train: step {state.step} != {steps}")
+        losses = check_train_logs(cfg)
+        ckpt = os.path.join(cfg.save_dir, "model_00001.ckpt")
+        check(os.path.exists(ckpt), "no model_00001.ckpt")
+        tm = state.timings
+        waits, step_s = tm["wait_s"], tm["step_s"]
+        emit({"phase": phase, "run": "train", "flags": " ".join(train_flags[6:]),
+              "seconds": train_s, "tree_seconds": tree_s, "frames": hw,
+              "split": {k: len(v) for k, v in split.items()},
+              "step_ms": [1e3 * x for x in step_s], "loader_wait_ms": [1e3 * x for x in waits],
+              "loader_wait_share": [w / (w + t) for w, t in zip(waits, step_s)],
+              "loader_batch_ms": [1e3 * x for x in tm["load_s"]],
+              "loader_frames_per_s": batch * len(tm["load_s"]) / sum(tm["load_s"]),
+              "loader_threads": cfg.num_threads,
+              # the prefetch hides the loader behind the first (slow) step of
+              # so short an epoch; a long one waits max(0, load - step) per step
+              "steady_wait_share": max(0.0, 1.0 - statistics.mean(step_s[1:] or step_s)
+                                       / statistics.mean(tm["load_s"])),
+              "val_batch_ms": [1e3 * x for x in tm["val_s"]],
+              "test_batch_ms": [1e3 * x for x in tm["test_s"]],
+              "max_memory_allocated_gb": peak_gb, "loss_rows": losses, "launches": launches})
+
+        # ---- the training loader alone, at one thread and a thread per core
+        rates = {}
+        for threads in (1, os.cpu_count()):
+            loader = DataLoader(get_data(cfg)(cfg, "train"), batch, shuffle=True,
+                                drop_last=True, num_threads=threads, prefetch=cfg.prefetch,
+                                seed=cfg.seed)
+            loader.set_epoch(1)
+            t0 = time.perf_counter()
+            frames = sum(b["rgb"].shape[0] for b in loader)
+            rates[threads] = frames / (time.perf_counter() - t0)
+        emit({"phase": phase, "run": "loader", "frames_per_s_by_threads": rates,
+              "train_sample_stage_ms": nyu_sample_stages(os.path.join(
+                  root, split["train"][0]["filename"]), cfg)})
+
+        # ---- --test_only on the checkpoint: the reload is bit-equal
+        test_flags = data_flags + ["--test_only", "--pretrain", ckpt,
+                                   "--test_batch_size", str(batch)]
+        tcfg, tstate, t_launches, test_s = run(test_flags, "test_only", pmain.test)
+        check(t_launches == zero, f"{phase} test launched a kernel: {t_launches}")
+        trained, reloaded = state.model.state_dict(), tstate.model.state_dict()
+        check(trained.keys() == reloaded.keys() and all(
+            torch.equal(trained[k], reloaded[k]) for k in trained),
+            "the reloaded checkpoint differs from the trained state")
+        metrics = logged(os.path.join(tcfg.save_dir, "metric_test.txt"), METRIC_NAMES)
+        emit({"phase": phase, "run": "test_only", "seconds": test_s,
+              "test_batch_ms": [1e3 * x for x in tstate.timings["test_s"]],
+              "metric_rows": metrics, "reload_bit_equal": True, "launches": t_launches})
+        del tstate, trained, reloaded
+
+        # ---- the val split under --ip_basic, through main.test
+        with open(os.path.join(root, "split_val.json"), "w") as f:
+            json.dump({"test": split["val"]}, f)
+        ip_flags = [x if x != os.path.join(root, "split.json")
+                    else os.path.join(root, "split_val.json") for x in test_flags]
+        icfg, istate, i_launches, ip_s = run(ip_flags + ["--ip_basic"], "val_ip_basic",
+                                             pmain.test)
+        check(i_launches == zero, f"{phase} --ip_basic launched a kernel: {i_launches}")
+        metrics = logged(os.path.join(icfg.save_dir, "metric_test.txt"), METRIC_NAMES)
+        emit({"phase": phase, "run": "val_ip_basic", "seconds": ip_s,
+              "batch_ms": [1e3 * x for x in istate.timings["test_s"]],
+              "metric_rows": metrics, "launches": i_launches})
+        del state, istate
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": phase, "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def main() -> int:
@@ -2176,6 +2427,11 @@ def main() -> int:
 
         # ---- 12-15. NLSPN, the CLI's default model
         path_launches.update(nlspn_phases(port, torch, dev))
+
+        # ---- 16. the CLI's default run: NLSPN on NYUv2
+        path_launches["cli-nyu"] = cli_nyu_phase(port, torch, dev)
+        check(path_launches["cli-nyu"] == {k: 0 for k in port.LAUNCHES},
+              "cli-nyu launched a kernel")
 
     # (route, source, TPU kernel, the path whose run counts its launches:
     # the path at whose shapes the kernel phase timed it). K1 and K4 run on

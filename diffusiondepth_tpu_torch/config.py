@@ -56,7 +56,7 @@ HEAD_CHOICES = (
 class Config:
     # ---- Dataset (reference src/config.py:11-39) ----
     dir_data: str = "/HDD/dataset/NYUDepthV2_HDF5"
-    data_name: str = "NYU"  # NYU (not ported yet) | KITTIDC | Synthetic
+    data_name: str = "NYU"  # NYU | KITTIDC | Synthetic
     split_json: str = "../data_json/kitti_dc.json"
     patch_height: int = 228
     patch_width: int = 304
@@ -92,8 +92,7 @@ class Config:
     num_train_timesteps: int = 1000
     # 'uniform' (scheduling_ddim) | 'biased' (scheduling_ddim_si SI table)
     timestep_schedule: str = "uniform"
-    # ip_basic densification of the sparse depth_map in the datasets (not
-    # ported yet: the datasets raise when it is set)
+    # ip_basic densification of the sparse depth_map in the datasets
     ip_basic: bool = False
 
     # ---- Training (reference src/config.py:146-203) ----

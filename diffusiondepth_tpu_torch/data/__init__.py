@@ -16,9 +16,9 @@ def get(args):
     if name == "Synthetic":
         return Synthetic
     if name == "NYU":
-        raise NotImplementedError(
-            "the NYU dataset is not ported yet (ROADMAP Queue 1: data/nyu.py, which "
-            "needs an HDF5 reader)")
+        from .nyu import NYU
+
+        return NYU
     raise NotImplementedError(f"dataset {name!r}")
 
 

@@ -4,7 +4,9 @@
 K-aware augmentation chain of training: top crop, hflip (fixes cx), ±5°
 rotation (bicubic RGB, nearest depth), fixed-order colour jitter, a
 1.0-1.5x shorter-side scale with K scaled and depth divided by the scale,
-a random crop with the principal point shifted, ImageNet normalisation.
+a random crop with the principal point shifted, ImageNet normalisation;
+``depth_map`` is the sparse depth, densified by ip_basic under
+``--ip_basic``.
 Images are numpy arrays (``transforms``); the PNGs are decoded by the
 port's own reader (``native/png.py``). The split JSON maps each of
 'train', 'val' and 'test' to entries {rgb, depth, gt, K} of paths under
@@ -22,6 +24,7 @@ import numpy as np
 
 from ..native.png import read_png
 from . import transforms as T
+from .ip_basic import densify_depth_map
 
 
 def read_depth(file_name: str) -> np.ndarray:
@@ -53,9 +56,6 @@ def read_calib_file(filepath: str) -> Dict[str, np.ndarray]:
 class KITTIDC:
     def __init__(self, args, mode):
         assert mode in ("train", "val", "test"), mode
-        if getattr(args, "ip_basic", False):
-            raise NotImplementedError(
-                "--ip_basic is not ported yet (ROADMAP Queue 1: data/ip_basic.py)")
         self.args = args
         self.mode = mode
         self.height = args.patch_height
@@ -174,12 +174,16 @@ class KITTIDC:
             dep_np = T.sparse_sample(dep_np, self.args.num_sample, rng)
 
         depth_mask = (dep_np > 0).astype(np.float32)
+        # KITTI keeps the raw sparse map as depth_map, densified by ip_basic
+        # under --ip_basic
+        depth_map = dep_np.copy()
+        if getattr(self.args, "ip_basic", False):
+            depth_map = densify_depth_map(depth_map, depth_mask)
         return {
             "rgb": rgb_np,
             "dep": dep_np,
             "gt": gt_np,
             "K": np.asarray(K, np.float32),
             "depth_mask": depth_mask,
-            # KITTI keeps the raw sparse map as depth_map
-            "depth_map": dep_np.copy(),
+            "depth_map": depth_map,
         }

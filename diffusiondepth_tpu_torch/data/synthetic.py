@@ -8,12 +8,11 @@ from typing import Dict
 
 import numpy as np
 
+from .ip_basic import densify_depth_map
+
 
 class Synthetic:
     def __init__(self, args, mode):
-        if getattr(args, "ip_basic", False):
-            raise NotImplementedError(
-                "--ip_basic is not ported yet (ROADMAP Queue 1: data/ip_basic.py)")
         self.args = args
         self.mode = mode
         self.height = args.patch_height
@@ -34,11 +33,14 @@ class Synthetic:
         gt = gt[..., None]
         dep = gt * (rng.rand(h, w, 1) > 0.95)
         depth_mask = (dep > 0).astype(np.float32)
+        depth_map = dep.astype(np.float32)
+        if getattr(self.args, "ip_basic", False):
+            depth_map = densify_depth_map(depth_map, depth_mask)
         return {
             "rgb": rgb.astype(np.float32),
             "dep": dep.astype(np.float32),
             "gt": gt.astype(np.float32),
             "K": np.asarray([500.0, 500.0, w / 2, h / 2], np.float32),
             "depth_mask": depth_mask,
-            "depth_map": dep.astype(np.float32),
+            "depth_map": depth_map,
         }

@@ -9,11 +9,15 @@ float32 (Pillow's mode 'F'). Each function follows Pillow's C code:
   in 16.16 fixed point as Pillow's ``affine_fixed``; bicubic (RGB) is
   Pillow's generic transform with its a = -1 cubic, edge-clamped taps and
   truncation to uint8. Pixels whose source falls outside are 0.
-* ``resize_shorter``: ``Image.resize``. BICUBIC is Pillow's separable
-  convolution (a = -0.5, support 2 scaled by the downscale factor),
-  horizontal pass first, each pass rounded back to uint8 from 22-bit fixed
-  point coefficients. NEAREST samples the pixel centre of each output
-  pixel, accumulated in double as Pillow's ``ImagingScaleAffine``.
+* ``resize_shorter``: ``Image.resize``. BICUBIC and BILINEAR are Pillow's
+  separable convolution (the a = -0.5 cubic of support 2, or the triangle
+  of support 1, the support scaled by the downscale factor), horizontal
+  pass first. On uint8 each pass is rounded back to uint8 from 22-bit
+  fixed-point coefficients; on float32 (BILINEAR, Pillow's mode 'F') the
+  coefficients and the sums are double, each pass stored as float32.
+  NEAREST samples the pixel centre of each output pixel, accumulated in
+  double as Pillow's ``ImagingScaleAffine``.
+* ``center_crop``: torchvision's, the offsets ``int(round((H - h) / 2))``.
 * ``adjust_brightness/contrast/saturation``: ``ImageEnhance`` blends
   against black, the rounded mean of the L image, and the L image (ITU-R
   601-2 luma in 16-bit fixed point), with ``Image.blend``'s float32
@@ -34,6 +38,7 @@ IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 NEAREST = 0
+BILINEAR = 2
 BICUBIC = 3
 
 
@@ -56,6 +61,13 @@ def crop(img: np.ndarray, top: int, left: int, height: int, width: int) -> np.nd
     if y0 < y1 and x0 < x1:
         out[y0 - top:y1 - top, x0 - left:x1 - left] = img[y0:y1, x0:x1]
     return out
+
+
+def center_crop(img: np.ndarray, crop_hw: Tuple[int, int]) -> np.ndarray:
+    """torchvision's ``center_crop`` of an (H, W[, C]) array to ``crop_hw``."""
+    ch, cw = crop_hw
+    w, h = size(img)
+    return crop(img, int(round((h - ch) / 2.0)), int(round((w - cw) / 2.0)), ch, cw)
 
 
 # ------------------------------------------------------------------ rotate
@@ -163,34 +175,51 @@ def _bicubic_kernel(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _coeffs(in_size: int, out_size: int):
-    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc``: per
-    output pixel its first source pixel and int32 fixed-point weights."""
+def _bilinear_kernel(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``bilinear_filter``: the triangle of support 1."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# resample -> (filter, support) as Pillow's ``filterp``
+_FILTERS = {BICUBIC: (_bicubic_kernel, 2.0), BILINEAR: (_bilinear_kernel, 1.0)}
+
+
+def _coeffs_double(in_size: int, out_size: int, resample):
+    """Pillow's ``precompute_coeffs``: per output pixel its first source
+    pixel and the normalised double weights of its taps (0 past the
+    last)."""
+    kernel, support = _FILTERS[resample]
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     centers = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
     xmin = np.maximum((centers - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum((centers + support + 0.5).astype(np.int64), in_size) - xmin
     ks = np.arange(ksize)
-    w = _bicubic_kernel((ks[None, :] + xmin[:, None] - centers[:, None] + 0.5)
-                        * (1.0 / filterscale))
+    w = kernel((ks[None, :] + xmin[:, None] - centers[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(ks[None, :] < xmax[:, None], w, 0.0)
     ww = np.zeros(out_size)
     for k in range(ksize):  # in order, as the C loop sums
         ww = ww + w[:, k]
-    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    return xmin, np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+
+
+def _coeffs(in_size: int, out_size: int, resample):
+    """``_coeffs_double`` + Pillow's ``normalize_coeffs_8bpc``: the
+    weights as int32 fixed point."""
+    xmin, w = _coeffs_double(in_size, out_size, resample)
     scaled = w * (1 << _PRECISION_BITS)
     kk = np.where(w < 0, (-0.5 + scaled).astype(np.int64), (0.5 + scaled).astype(np.int64))
     return xmin, kk
 
 
-def _resample_axis(src: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(src: np.ndarray, out_size: int, axis: int, resample) -> np.ndarray:
     """One pass of Pillow's 8-bit resampling along ``axis`` (0 or 1) of an
     (H, W, C) uint8 array, in int32 as Pillow sums."""
     in_size = src.shape[axis]
-    xmin, kk = _coeffs(in_size, out_size)
+    xmin, kk = _coeffs(in_size, out_size, resample)
     s = np.moveaxis(src, axis, 0)
     acc = np.full((out_size,) + s.shape[1:], 1 << (_PRECISION_BITS - 1), np.int32)
     for k in range(kk.shape[1]):
@@ -201,13 +230,27 @@ def _resample_axis(src: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def _resize_bicubic(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
+def _resample_axis_f32(src: np.ndarray, out_size: int, axis: int, resample) -> np.ndarray:
+    """One pass of Pillow's ``ImagingResample*_32bpc`` on float32: the
+    taps summed in order in double, stored as float32."""
+    in_size = src.shape[axis]
+    xmin, w = _coeffs_double(in_size, out_size, resample)
+    s = np.moveaxis(src, axis, 0)
+    acc = np.zeros((out_size,) + s.shape[1:], np.float64)
+    for k in range(w.shape[1]):
+        idx = np.minimum(xmin + k, in_size - 1)
+        acc += np.take(s, idx, axis=0) * w[:, k].reshape((-1,) + (1,) * (s.ndim - 1))
+    return np.moveaxis(acc.astype(np.float32), 0, axis)
+
+
+def _resize_separable(img: np.ndarray, new_w: int, new_h: int, resample) -> np.ndarray:
     h, w = img.shape[:2]
     x = img.reshape(h, w, -1)
+    axis_pass = _resample_axis if img.dtype == np.uint8 else _resample_axis_f32
     if new_w != w:
-        x = _resample_axis(x, new_w, 1)
+        x = axis_pass(x, new_w, 1, resample)
     if new_h != h:
-        x = _resample_axis(x, new_h, 0)
+        x = axis_pass(x, new_h, 0, resample)
     return x.reshape((new_h, new_w) + img.shape[2:])
 
 
@@ -220,8 +263,8 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
 
 
 def resize(img: np.ndarray, new_w: int, new_h: int, resample) -> np.ndarray:
-    """``Image.resize((new_w, new_h), resample)`` for NEAREST (any dtype)
-    and BICUBIC (uint8)."""
+    """``Image.resize((new_w, new_h), resample)`` for NEAREST (any dtype),
+    BICUBIC (uint8) and BILINEAR (uint8 and float32)."""
     h, w = img.shape[:2]
     if (new_w, new_h) == (w, h):
         return img.copy()
@@ -230,8 +273,9 @@ def resize(img: np.ndarray, new_w: int, new_h: int, resample) -> np.ndarray:
         if (yi < 0).any() or (yi >= h).any() or (xi < 0).any() or (xi >= w).any():
             raise ValueError("nearest resize index out of range")
         return img[yi[:, None], xi[None, :]]
-    if resample == BICUBIC and img.dtype == np.uint8:
-        return _resize_bicubic(img, new_w, new_h)
+    if (resample == BICUBIC and img.dtype == np.uint8
+            or resample == BILINEAR and img.dtype in (np.uint8, np.float32)):
+        return _resize_separable(img, new_w, new_h, resample)
     raise NotImplementedError(f"resize with resample {resample} of {img.dtype}")
 
 

@@ -273,7 +273,9 @@ def test_unsupported_resampling_raises(images):
     with pytest.raises(NotImplementedError):
         T.rotate(images[1], 3.0, T.BICUBIC)
     with pytest.raises(NotImplementedError):
-        T.resize(images[0], 50, 30, 2)  # Pillow's BILINEAR
+        T.resize(images[0], 50, 30, 1)  # Pillow's LANCZOS
+    with pytest.raises(NotImplementedError):
+        T.resize(images[1].astype(np.float64), 50, 30, T.BILINEAR)
 
 
 # ------------------------------------------------------------- KITTIDC
@@ -313,13 +315,32 @@ def test_kittidc_samples_match_jax(kitti_root, mode):
             assert np.abs(a["rgb"] - b["rgb"]).max() <= RGB_TOL
 
 
-def test_ip_basic_and_nyu_raise(kitti_root):
-    pcfg, _ = _configs(kitti_root, ip_basic=True)
-    for cls in (get(pcfg), get(Config(data_name="Synthetic", ip_basic=True).finalize())):
-        with pytest.raises(NotImplementedError, match="ip_basic"):
-            cls(pcfg, "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get(Config(data_name="NYU").finalize())
+@pytest.mark.parametrize("mode", ["train_augment_sparse", "val", "test"])
+def test_kittidc_ip_basic_matches_jax(kitti_root, mode):
+    """--ip_basic densifies depth_map as JAX's does (OpenCV's route): within
+    5e-4 m, the same filled pixels; every other key exactly."""
+    split, kw = MODES[mode]
+    pcfg, jcfg = _configs(kitti_root, ip_basic=True, **kw)
+    ds, jds = get(pcfg)(pcfg, split), jget(jcfg)(jcfg, split)
+    for idx in range(len(ds)):
+        a, b = ds.__getitem__(idx, seed=5), jds.__getitem__(idx, seed=5)
+        for k in ("K", "dep", "gt", "depth_mask"):
+            assert np.array_equal(a[k], b[k]), (mode, idx, k)
+        assert np.abs(a["rgb"] - b["rgb"]).max() <= RGB_TOL
+        dm, jdm = a["depth_map"], b["depth_map"]
+        assert dm.shape == jdm.shape == a["dep"].shape and (dm > 0).mean() > (a["dep"] > 0).mean()
+        assert np.array_equal(dm > 0, jdm > 0) and np.abs(dm - jdm).max() <= 5e-4
+
+
+def test_synthetic_ip_basic_matches_jax():
+    kw = dict(data_name="Synthetic", patch_height=32, patch_width=48, ip_basic=True)
+    pcfg, jcfg = Config(**kw).finalize(), JConfig(**kw).finalize()
+    ds, jds = get(pcfg)(pcfg, "train"), jget(jcfg)(jcfg, "train")
+    for idx, seed in ((0, None), (3, 17)):
+        a, b = ds.__getitem__(idx, seed=seed), jds.__getitem__(idx, seed=seed)
+        assert all(np.array_equal(a[k], b[k]) for k in a if k != "depth_map")
+        assert np.array_equal(a["depth_map"] > 0, b["depth_map"] > 0)
+        assert np.abs(a["depth_map"] - b["depth_map"]).max() <= 5e-4
 
 
 # -------------------------------------------------------------- loader

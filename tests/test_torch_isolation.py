@@ -76,6 +76,60 @@ def test_source_has_no_image_or_serialization_import(path):
     assert not _RUNTIME_FORBIDDEN.search(src), _RUNTIME_FORBIDDEN.search(src).group(0)
 
 
+_DATA_LAYER_WITHOUT_LIBRARIES = """
+import importlib.abc, json, os, sys, tempfile
+import numpy as np
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("h5py", "cv2", "PIL"):
+            raise ImportError("blocked: " + name)
+
+
+sys.meta_path.insert(0, Block())
+from diffusiondepth_tpu_torch.config import Config
+from diffusiondepth_tpu_torch.data import get
+from diffusiondepth_tpu_torch.native.hdf5 import write_datasets
+from diffusiondepth_tpu_torch.tools.generate_json import generate_nyu_json
+
+root = tempfile.mkdtemp()
+os.makedirs(os.path.join(root, "train", "s"))
+os.makedirs(os.path.join(root, "val", "official"))
+r = np.random.RandomState(0)
+for name in ("train/s/00000.h5", "train/s/00001.h5", "val/official/00000.h5"):
+    write_datasets(os.path.join(root, name), {
+        "rgb": r.randint(0, 256, (3, 60, 80), np.uint8),
+        "depth": r.uniform(0.5, 10, (60, 80)).astype(np.float32)})
+with open(os.path.join(root, "train.csv"), "w") as f:
+    f.write("".join("x" * 19 + "train/s/%05d.h5\\n" % i for i in range(2)))
+split = generate_nyu_json(root, os.path.join(root, "train.csv"), "", val_ratio=0.5)
+with open(os.path.join(root, "split.json"), "w") as f:
+    json.dump(split, f)
+shapes = []
+for ip_basic in (False, True):
+    cfg = Config(data_name="NYU", dir_data=root, split_json=os.path.join(root, "split.json"),
+                 ip_basic=ip_basic).finalize()
+    for mode in ("train", "val", "test"):
+        s = get(cfg)(cfg, mode).__getitem__(0, seed=1)
+        shapes.append(s["depth_map"].shape)
+    syn = Config(data_name="Synthetic", patch_height=32, patch_width=48,
+                 ip_basic=ip_basic).finalize()
+    shapes.append(get(syn)(syn, "train")[0]["depth_map"].shape)
+print(sorted(set(shapes)),
+      sorted(m for m in sys.modules if m.split(".")[0] in ("h5py", "cv2", "PIL")))
+"""
+
+
+def test_data_layer_runs_without_h5py_cv2_or_pil():
+    """With h5py, cv2 and PIL blocked from importing, the port writes NYU
+    files, makes the split, and reads NYU (with and without --ip_basic)
+    and Synthetic (--ip_basic) samples: nothing reaches those libraries."""
+    out = subprocess.run([sys.executable, "-c", _DATA_LAYER_WITHOUT_LIBRARIES], cwd=REPO,
+                         check=True, capture_output=True, text=True).stdout
+    assert out.strip() == "[(32, 48, 1), (228, 304, 1)] []", out
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|flax|diffusiondepth_tpu)\b(?!_torch)"
     r"|from\s+(jax|flax|diffusiondepth_tpu)\b(?!_torch))", re.M)
