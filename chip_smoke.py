@@ -10,8 +10,9 @@ Phases, one JSON line each:
              printed raw, as nvidia-smi gives them);
 2. build   - the CUDA kernels compiled with nvcc for sm_90a, one process
              per source, all at once; -Xptxas -v of the attention kernels
-             (K4, K7, K8) by kernel, and the count of tensor-core, ldmatrix
-             and cp.async instructions in each library's SASS (cuobjdump);
+             (K4, K7, K8) and of K10 by kernel, and the count of
+             tensor-core, ldmatrix and cp.async instructions in each
+             library's SASS (cuobjdump);
 3. kernel  - every kernel against its plain PyTorch version at the
              flagship shapes, in bf16. Eval: the conv link (K1) at its six
              configurations on the (8, 176, 608) latent, and again on the
@@ -28,10 +29,11 @@ Phases, one JSON line each:
              shapes, against its plain version and, bit for bit, against
              K4 on the same data; the bf16 LayerNorm forward (K9) and
              backward (K10, run twice: bit-equal) at each (rows, channels)
-             of the Swin-L norms of a 352x906 batch of 4. Each reports its
-             error against its tolerance, its time, the plain version's
-             time, a library call's time where one exists and the least
-             time the card could take (bound). The kernels that may take
+             of the Swin-L norms of a 352x906 batch of 4, with K10's plan
+             and the share of the bound per shape and per pass. Each
+             reports its error against its tolerance, its time, the plain
+             version's time, a library call's time where one exists and the
+             least time the card could take (bound). The kernels that may take
              under 0.1 ms (K2, K3, K6, K9, K10, and the library's LayerNorm)
              are timed by replaying a CUDA graph of 100 launches, which
              leaves the host's launch cost out, beside the event-timed loop;
@@ -1063,7 +1065,8 @@ def main() -> int:
     from diffusiondepth_tpu_torch.models.common import LayerNorm
     from diffusiondepth_tpu_torch.ops import native
     from diffusiondepth_tpu_torch.ops.layernorm import (
-        layernorm_bwd, layernorm_bwd_plain, layernorm_fwd, layernorm_fwd_plain,
+        layernorm_bwd, layernorm_bwd_plain, layernorm_bwd_plan, layernorm_fwd,
+        layernorm_fwd_plain,
     )
     from diffusiondepth_tpu_torch.ops.fused_denoiser import (
         _conv_link_lib, _link_input_plain, conv_link, conv_link_bwd, conv_link_bwd_plain,
@@ -1193,11 +1196,11 @@ def main() -> int:
              for k, v in logs.items()}
     emit({"phase": "build", "seconds": secs, "sources": list(native.CUDA_SOURCES),
           "ptxas": ptxas})
-    # -Xptxas -v of the tensor-core attention kernels by kernel, and whether
-    # their SASS holds tensor-core (HMMA/HGMMA), ldmatrix and cp.async
-    # (LDGSTS) instructions
+    # -Xptxas -v of the tensor-core attention kernels and of K10 by kernel,
+    # and whether each library's SASS holds tensor-core (HMMA/HGMMA),
+    # ldmatrix and cp.async (LDGSTS) instructions
     for src, log in logs.items():
-        if not src.startswith("window_attention"):
+        if not (src.startswith("window_attention") or src == "layernorm_bwd"):
             continue
         entry = None
         for ln in log.splitlines():
@@ -1722,8 +1725,15 @@ def main() -> int:
             bms, by = bound(nbytes, flops, F32_FLOPS)
             rec = dict(ms=ms, event_ms=ev, plain_ms=plain_ms, library_ms=lib_ms,
                        library_event_ms=lib_ev, bound_ms=bms, bound_by=by)
+            extra = {"share_of_bound": bms / ms}
+            if name_ == "layernorm_bwd":
+                plan = layernorm_bwd_plan(m, c, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+                extra["plan"] = {k: getattr(plan, k) for k in (
+                    "ctas", "rows_per_stage", "stages", "threads_per_row",
+                    "vectors_per_thread", "smem_bytes")}
             emit({"phase": "kernel", "kernel": name_, "shape": [m, c], "per_swin_l_pass": count,
-                  "errors": errs, "tols": tols, "bitwise_repeatable": bitwise, **rec})
+                  "errors": errs, "tols": tols, "bitwise_repeatable": bitwise, **rec, **extra})
             for kk in ln_pass[name_]:
                 ln_pass[name_][kk] += count * rec[kk]
             if (m, c) == ln_shape:
@@ -1731,6 +1741,8 @@ def main() -> int:
                 summary[name_] = dict(rec, max_abs_err=(got.float() - ref.float()).abs().max()
                                       .item())
         del x2, dy2, y_k, y_p, dx_k, dx_2, dx_p, lmean, lrstd
+    for rec in ln_pass.values():
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     emit({"phase": "kernel", "kernel": "layernorm", "what": "sum over the 56 norms of one "
           "Swin-L forward (backward) at 352x906, batch 4", "shapes": {
               f"{m}x{c}": n for (m, c), n in sorted(norm_shapes.items())}, **ln_pass})
@@ -2453,7 +2465,7 @@ def main() -> int:
                "window_attention_split": ("cuda", csrc + "window_attention_split.cu, " + wa_sm90,
                                           wa_py + ":106", "serve-pallas"),
                "layernorm_fwd": ("triton", csrc + "layernorm.py", ln_py + ":52", "layernorm"),
-               "layernorm_bwd": ("triton", csrc + "layernorm.py", ln_py + ":67", "layernorm")}
+               "layernorm_bwd": ("cuda", csrc + "layernorm_bwd.cu", ln_py + ":67", "layernorm")}
     emit({"kernels": [
         {"name": k, "route": src[0], "source": src[1], "replaces": src[2], "path": src[3],
          "launches": path_launches[src[3]][k],

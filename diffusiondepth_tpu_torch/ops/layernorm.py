@@ -2,23 +2,36 @@
 backward.
 
 Port of ``diffusiondepth_tpu/ops/layernorm.py``: ``layernorm_fwd`` launches
-the Triton kernel K9 and ``layernorm_bwd`` the Triton kernel K10
-(``csrc/layernorm.py``) on a CUDA tensor; both run their plain versions,
-the JAX package's ``_ln_jnp_fwd`` / ``_ln_jnp_bwd``, on a CPU tensor.
-``LayerNormBF16`` is the counterpart of the ``layernorm_bf16`` custom_vjp:
-forward K9, backward K10, with the input and the per-row (mean, inv) as
-residuals. ``models/common.py::LayerNorm`` calls it under the bf16 policy.
+the Triton kernel K9 (``csrc/layernorm.py``) and ``layernorm_bwd`` the CUDA
+kernel K10 (``csrc/layernorm_bwd.cu``, planned by ``layernorm_bwd_plan``)
+on a CUDA tensor; both run their plain versions, the JAX package's
+``_ln_jnp_fwd`` / ``_ln_jnp_bwd``, on a CPU tensor. ``LayerNormBF16`` is
+the counterpart of the ``layernorm_bf16`` custom_vjp: forward K9, backward
+K10, with the input and the per-row (mean, inv) as residuals.
+``models/common.py::LayerNorm`` calls it under the bf16 policy.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import native
 
 BF16 = torch.bfloat16
+
+# K10's block (csrc/layernorm_bwd.cu): 8 consumer warps and one producer
+# warp; its shared memory: 256 bytes of mbarriers, the ring, the (2, C)
+# slots of the block's dscale/dbias fold, 128 bytes of cross-warp row sums
+LN_BWD_CONSUMERS = 256
+LN_BWD_SMEM_LIMIT = 232448  # the H100's 227 KB per block
+_LN_BWD_BAR_BYTES, _LN_BWD_MSUM_BYTES = 256, 128
+_LN_BWD_MAX_STAGES = 16
+_LN_BWD_STAGE_BYTES = 16384  # a stage holds at least one row per group, else ~16 KB
+_LN_BWD_RING_BYTES = 81920  # the ring: ~75 KB of x and dy in flight per SM
 
 
 def layernorm_fwd_plain(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -73,13 +86,102 @@ def layernorm_fwd(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y, mean, inv
 
 
+class LayerNormBwdPlan(NamedTuple):
+    """How K10 splits an (M, C) backward. Block b takes rows
+    ``row_ranges[b]`` (contiguous, in order); ``threads_per_row`` threads
+    (a power of two) share a row, each owning ``vectors_per_thread`` 16-byte
+    vectors of 8 columns (``warps_per_row`` = threads_per_row / 32 warps
+    for a row wider than a warp), so the block's 256 consumer threads take
+    256 / threads_per_row rows at a time. The ring has
+    ``stages`` stages of ``rows_per_stage`` rows of x and of dy,
+    ``stage_bytes`` each: x at offset 0, dy at ``dy_offset``, then the
+    rows' mean and inv, from ``ring_offset`` of the block's ``smem_bytes``
+    of shared memory. The workspace of dscale/dbias partials is (ctas, 2,
+    C) f32."""
+
+    ctas: int
+    row_ranges: Tuple[Tuple[int, int], ...]
+    rows_per_stage: int
+    stages: int
+    threads_per_row: int
+    vectors_per_thread: int
+    ring_offset: int
+    stage_bytes: int
+    dy_offset: int
+    smem_bytes: int
+
+    @property
+    def warps_per_row(self) -> float:
+        return self.threads_per_row / 32
+
+
+def layernorm_bwd_smem_bytes(r: int, s: int, c: int, tpr: int) -> int:
+    """K10's shared memory for ``s`` stages of ``r`` rows of width ``c`` at
+    ``tpr`` threads per row: mbarriers, the ring (x, dy, then each row's
+    mean and inv, padded to 16 bytes), the block's (2, c) fold slots (one
+    per row group of 32+ threads, else one per warp) and the cross-warp
+    row sums. ``csrc/layernorm_bwd.cu::smem_bytes`` lays it out the same."""
+    stage = 4 * r * c + 8 * (-(-r // 4) * 4)
+    slots = LN_BWD_CONSUMERS // tpr if tpr >= 32 else LN_BWD_CONSUMERS // 32
+    return _LN_BWD_BAR_BYTES + s * stage + slots * 8 * c + _LN_BWD_MSUM_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def layernorm_bwd_plan(m: int, c: int, sms: int = 132) -> LayerNormBwdPlan:
+    """K10's split of an (m, c) backward over ``sms`` SMs: one block per SM
+    (at most one per row), each on a contiguous run of rows; threads per
+    row the power of two whose ceil(c / 8 / threads) <= 4 vectors per
+    thread leave the fewest columns idle (3 vectors of 8 at every Swin
+    width, none idle); rows per stage a multiple of the rows the block
+    takes at a time, at least ~16 KB; as many stages as fit ~75 KB, at
+    least 2, no more than the largest block needs. Raises ``ValueError``
+    unless c % 8 == 0, 8 <= c <= 3072 and m >= 1. A pure function of the
+    shapes, mirrored by the layout of ``csrc/layernorm_bwd.cu``, which
+    refuses another."""
+    if m < 1 or c % 8 or not 8 <= c <= 3072:
+        raise ValueError(f"layernorm_bwd: needs C % 8 == 0, 8 <= C <= 3072 and M >= 1, "
+                         f"got ({m}, {c})")
+    nv = c // 8
+    tpr, vpt = min(((t, -(-nv // t)) for t in (1, 2, 4, 8, 16, 32, 64, 128)
+                    if -(-nv // t) <= 4), key=lambda p: (p[0] * p[1] - nv, p[0]))
+    groups = LN_BWD_CONSUMERS // tpr
+    ctas = min(sms, m)
+    q, rem = divmod(m, ctas)
+    ranges = tuple((b * q + min(b, rem), (b + 1) * q + min(b + 1, rem)) for b in range(ctas))
+    rows_max = q + (rem > 0)
+    per_group = max(1, min(_LN_BWD_STAGE_BYTES // (groups * 4 * c), -(-rows_max // groups)))
+    r = groups * per_group
+    stage = 4 * r * c + 8 * (-(-r // 4) * 4)
+    s = max(2, min(_LN_BWD_MAX_STAGES, _LN_BWD_RING_BYTES // stage, -(-rows_max // r)))
+    smem = layernorm_bwd_smem_bytes(r, s, c, tpr)
+    if smem > LN_BWD_SMEM_LIMIT:  # cannot happen for c <= 3072: stages <= 32 KB
+        raise ValueError(f"layernorm_bwd: no plan fits ({m}, {c})")
+    return LayerNormBwdPlan(ctas, ranges, r, s, tpr, vpt, _LN_BWD_BAR_BYTES, stage, 2 * r * c,
+                            smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launch_fn():
+    fn = native.load("layernorm_bwd").layernorm_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, mean: torch.Tensor,
                   inv: torch.Tensor, scale: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx (M, C) bf16, dscale (C,) f32, dbias (C,) f32) of ``layernorm_fwd``
     for dy2 (M, C) bf16: kernel K10 on the card, the plain version for a
-    CPU tensor. dscale and dbias are reduced from per-program partials in a
-    fixed order, so two launches on the same inputs give the same bits."""
+    CPU tensor. On the card C % 8 == 0, 8 <= C <= 3072, and x2 and dy2
+    start on 16-byte boundaries. dscale and dbias are reduced from
+    per-block partials in a fixed order, so two launches on the same inputs
+    give the same bits."""
     native.no_autograd("layernorm_bwd", x2, dy2, mean, inv, scale)
     if x2.device.type == "cpu":
         return layernorm_bwd_plain(x2, dy2, mean, inv, scale)
@@ -90,14 +192,20 @@ def layernorm_bwd(x2: torch.Tensor, dy2: torch.Tensor, mean: torch.Tensor,
                                            (mean, (m,), torch.float32),
                                            (inv, (m,), torch.float32),
                                            (scale, (c,), torch.float32)), x2.device)
-    mod = native.triton_module("layernorm")
+    native.check_aligned("layernorm_bwd", x2, dy2)
+    plan = layernorm_bwd_plan(m, c, _sm_count(x2.device.index))
     dx = torch.empty_like(x2)
-    part = torch.empty((mod.bwd_programs(m), 2, c), dtype=torch.float32, device=x2.device)
-    ds = torch.empty(c, dtype=torch.float32, device=x2.device)
-    db = torch.empty(c, dtype=torch.float32, device=x2.device)
+    dsdb = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    part = torch.empty((plan.ctas, 2, c), dtype=torch.float32, device=x2.device)
     with torch.cuda.device(x2.device):
-        mod.bwd_launch(x2, dy2, mean, inv, scale, dx, part, ds, db)
+        err = _bwd_launch_fn()(x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+                               scale.data_ptr(), dx.data_ptr(), dsdb.data_ptr(),
+                               dsdb.data_ptr() + 4 * c, part.data_ptr(), m, c, plan.ctas,
+                               plan.rows_per_stage, plan.stages, plan.threads_per_row,
+                               plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
+    native.check(err, "layernorm_bwd")
     native.LAUNCHES["layernorm_bwd"] += 1
+    ds, db = dsdb.unbind(0)
     return dx, ds, db
 
 

@@ -29,7 +29,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CUDA_SOURCES = ("conv_link", "window_attention", "conv_link_bwd", "window_attention_bwd",
-                "window_attention_split")
+                "window_attention_split", "layernorm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -152,8 +152,8 @@ def check_tensors(kernel: str, expect, device) -> None:
 
 def check_aligned(kernel: str, *tensors) -> None:
     """Raise unless each tensor's data starts on a 16-byte boundary, as the
-    TMA loads of the conv kernels and the 16-byte cp.async rows of the bf16
-    attention kernels need."""
+    TMA loads of the conv kernels, the 16-byte cp.async rows of the bf16
+    attention kernels and the 1-D bulk copies of K10 need."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{kernel} inputs must start on a 16-byte boundary")
 

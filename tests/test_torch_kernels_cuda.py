@@ -289,13 +289,15 @@ def test_window_attention_bf16_tile_edges(dev, B, nw, heads, n, masked):
     assert (db - rb).abs().max() <= 1e-4 * rb.abs().max()
 
 
-@pytest.mark.parametrize("m,c", [(300, 192), (129, 384), (37, 3072), (1001, 768)])
+@pytest.mark.parametrize("m,c", [(300, 192), (129, 384), (37, 3072), (1001, 768), (1, 768),
+                                 (5016, 768), (1276, 1536), (1276, 3072)])
 def test_layernorm_fwd_bwd_match_plain(dev, m, c):
     """K9: y within one bf16 step (1e-2 of the largest value), mean to
     1e-5 and inv to 1e-4 (Triton's rsqrt) relative. K10: dx within one
     bf16 step, dscale and dbias to f32 summation order (1e-3 of the
     largest value); two launches give the same bits. M is not a multiple
-    of any row block."""
+    of any row block; (1, 768) is one block of one row, the last three are
+    Swin-L norms of a 352x906 batch of 4."""
     g = torch.Generator(device=dev).manual_seed(8)
     x = _rand(g, dev, m, c, scale=2.0, dtype=torch.bfloat16) + 0.5
     dy = _rand(g, dev, m, c, dtype=torch.bfloat16)
@@ -317,6 +319,20 @@ def test_layernorm_fwd_bwd_match_plain(dev, m, c):
     assert (dx.float() - rdx.float()).abs().max() <= 1e-2 * rdx.float().abs().max()
     for a, b_ in ((ds, rds), (db, rdb)):
         assert (a - b_).abs().max() <= 1e-3 * b_.abs().max()
+
+
+def test_layernorm_bwd_refuses_misaligned(dev):
+    """K10 bulk-copies rows of x and dy from 16-byte boundaries: a view
+    that starts one bf16 past one raises by name and launches nothing."""
+    m, c = 64, 192
+    flat = torch.zeros(m * c + 1, device=dev, dtype=torch.bfloat16)
+    x2 = flat[1:].view(m, c)
+    dy = torch.zeros(m, c, device=dev, dtype=torch.bfloat16)
+    rows = torch.ones(m, device=dev)
+    n0 = LAUNCHES["layernorm_bwd"]
+    with pytest.raises(ValueError, match="layernorm_bwd.*16-byte"):
+        ln.layernorm_bwd(x2, dy, rows, rows, torch.ones(c, device=dev))
+    assert LAUNCHES["layernorm_bwd"] == n0
 
 
 # backbone family -> its Config fields
