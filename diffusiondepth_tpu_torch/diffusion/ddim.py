@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +87,10 @@ class DDIMSchedule:
     @property
     def final_alpha_cumprod(self) -> float:
         return 1.0 if self.set_alpha_to_one else float(self.alphas_cumprod[0])
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return 1.0
 
     def inference_timesteps(self, num_inference_steps: int) -> np.ndarray:
         step_ratio = self.num_train_timesteps // num_inference_steps
@@ -191,3 +195,66 @@ class DDIMSchedule:
                 raise ValueError("eta > 0 requires variance_noise")
             prev_sample = prev_sample + std_dev_t * variance_noise
         return prev_sample, pred_original
+
+    def step(
+        self,
+        model_output: torch.Tensor,
+        timestep,
+        sample: torch.Tensor,
+        num_inference_steps: int,
+        eta: float = 0.0,
+        use_clipped_model_output: bool = True,
+        variance_noise: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The timestep-indexed (diffusers-style) step: the alphas of
+        ``timestep`` and of ``timestep - num_train_timesteps //
+        num_inference_steps`` (``final_alpha_cumprod`` below 0)."""
+        acp = torch.as_tensor(self.alphas_cumprod, device=sample.device)
+        t = torch.as_tensor(timestep, device=sample.device)
+        prev_t = t - self.num_train_timesteps // num_inference_steps
+        alpha_prev = torch.where(prev_t >= 0, acp[prev_t.clamp_min(0)],
+                                 torch.as_tensor(self.final_alpha_cumprod, dtype=acp.dtype,
+                                                 device=acp.device))
+        return self.step_from_alphas(model_output, sample, acp[t], alpha_prev, eta,
+                                     use_clipped_model_output, variance_noise)
+
+    def sample(
+        self,
+        denoise_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        generator: Optional[torch.Generator],
+        shape: Tuple[int, ...],
+        num_inference_steps: int,
+        dtype: torch.dtype = torch.float32,
+        eta: float = 0.0,
+        use_clipped_model_output: bool = True,
+        return_trajectory: bool = False,
+        timesteps: Optional[np.ndarray] = None,
+        latent: Optional[torch.Tensor] = None,
+    ):
+        """The whole reverse process: ``denoise_fn(latent, t)`` (t a 0-d
+        int64 tensor on the latent's device) predicts the model output at
+        each step of ``inference_tables``; the starting latent, and with
+        ``eta > 0`` each step's variance noise, are drawn from
+        ``generator`` on its device (the CPU's default generator when
+        None). ``latent`` hands in the starting latent instead. Returns the
+        final latent, and with ``return_trajectory`` also every step's
+        latent stacked (steps, *shape)."""
+        tables = self.inference_tables(num_inference_steps, timesteps)
+        if latent is None:
+            latent = torch.randn(shape, generator=generator, dtype=dtype,
+                                 device=generator.device if generator is not None else "cpu")
+        x = latent.to(dtype)
+        ts = torch.from_numpy(tables.timesteps).to(x.device)
+        a_t = torch.from_numpy(tables.alpha_prod_t).to(x.device, x.dtype)
+        a_prev = torch.from_numpy(tables.alpha_prod_prev).to(x.device, x.dtype)
+        traj = []
+        for i in range(len(tables.timesteps)):
+            vnoise = (torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+                      if eta > 0 else None)
+            x, _ = self.step_from_alphas(denoise_fn(x, ts[i]), x, a_t[i], a_prev[i], eta,
+                                         use_clipped_model_output, vnoise)
+            if return_trajectory:
+                traj.append(x)
+        if return_trajectory:
+            return x, torch.stack(traj)
+        return x

@@ -2,8 +2,9 @@
 
 The ``w1*NAME+w2*NAME`` spec, ``LossComputer`` returning ``(loss_sum,
 per-term row)``, the masked L1/L2 (per-sample masked mean, summed over the
-batch), the AdaBins scale-invariant log loss, and the DDIM term that the
-head computes (``output['ddim_loss']``). All in f32.
+batch), the AdaBins scale-invariant log loss, the DDIM term that the
+head computes (``output['ddim_loss']``) and the BIN term, the sum of
+``output['bin_losses']``. All in f32.
 """
 
 from __future__ import annotations
@@ -79,6 +80,8 @@ class LossComputer:
                 v = output["ddim_loss"]
                 if v is None:
                     v = torch.zeros((), device=pred.device)
+            elif loss_type == "BIN":
+                v = sum(output["bin_losses"].values())
             else:
                 raise NotImplementedError(loss_type)
             vals.append(weight * v)

@@ -135,11 +135,13 @@ class ConvBNAct(nn.Sequential):
         self.act = act
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, running: bool = False) -> torch.Tensor:
+        """``running=True``: the BatchNorm uses its running statistics in
+        training mode too."""
         conv = self[0]
         y = conv2d_nhwc(x, conv.weight, conv.bias, conv.stride, conv.padding, self.dtype)
         if len(self) > 1:
-            y = self[1](y, self.dtype)
+            y = self[1](y, self.dtype, running)
         return act_fn(y, self.act)
 
 
@@ -165,6 +167,12 @@ class DeconvBNAct(nn.Sequential):
         pad, out_pad = _DECONV_PAD[self.kernel]
         y = conv_transpose2d_nhwc(x, deconv.weight, None, 2, pad, out_pad, self.dtype)
         return act_fn(bn(y, self.dtype), self.act)
+
+
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """torch MaxPool2d on an NHWC map (the border pads with -inf)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, padding)
+    return y.permute(0, 2, 3, 1)
 
 
 def group_norm_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

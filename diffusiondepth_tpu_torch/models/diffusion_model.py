@@ -1,6 +1,8 @@
 """Composed DiffusionDepth model, backbone + DDIM head, and the model
 factory (port of ``diffusiondepth_tpu/models/diffusion_model.py`` for
-``Diffusion_DCbase_`` and ``NLSPN``).
+``Diffusion_DCbase_``, ``Diffusion_DCx4base_`` and ``NLSPN``).
+``Diffusion_DCx4base_`` is the same composition with the X4 depth
+transform: a quarter-resolution latent.
 
 Three backbone families are ported: ``mmbev_resnet`` (``mmbev_res18/50/101``,
 default head ``DDIMDepthEstimate_Res``), ``swin`` (every Swin name, default
@@ -21,6 +23,8 @@ from .backbones import mmbev_resnet, mpvit, swin  # noqa: F401  (register the ba
 from .heads import ddim_head  # noqa: F401  (registers the heads)
 from .nlspn import NLSPNModel
 
+# the depth transform of Diffusion_DCx4base_
+X4_DEPTH_TRANSFORM = dict(type="DeepDepthTransformWithUpsamplingX4", hidden=16, eps=1e-6)
 # the default head of each backbone module when head_specify is not given
 _DEFAULT_HEAD = {
     "mmbev_resnet": "DDIMDepthEstimate_Res",
@@ -38,9 +42,11 @@ class Diffusion_DCbase_Model(nn.Module):
                  head_in_channels: Optional[Sequence[int]] = None,
                  use_pallas: bool = False, fused_window_attention: bool = True,
                  remat_backbone: bool = True, use_fused_denoiser: bool = True,
+                 depth_transform_cfg: Optional[Dict[str, Any]] = None,
                  dtype: Optional[torch.dtype] = None):
         """Only a Swin backbone takes ``use_pallas``,
-        ``fused_window_attention`` and ``remat_backbone``."""
+        ``fused_window_attention`` and ``remat_backbone``;
+        ``depth_transform_cfg`` goes to the head (None: its default)."""
         super().__init__()
         if backbone_module not in _DEFAULT_HEAD:
             raise ValueError(f"unknown backbone_module {backbone_module!r}; "
@@ -54,7 +60,7 @@ class Diffusion_DCbase_Model(nn.Module):
             in_channels=head_in_channels, inference_steps=inference_steps,
             num_train_timesteps=num_train_timesteps,
             timestep_schedule=timestep_schedule, use_fused_denoiser=use_fused_denoiser,
-            dtype=dtype)
+            depth_transform_cfg=depth_transform_cfg, dtype=dtype)
 
     def forward(self, sample: Dict[str, torch.Tensor],
                 init_latent: Optional[torch.Tensor] = None,
@@ -76,7 +82,8 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> nn.Module
     ``cfg.use_pallas``, ``cfg.fused_window_attention`` and
     ``cfg.remat_backbone`` choose the Swin backbone's attention route and
     block rematerialisation; ``cfg.fused_denoiser`` lets the denoiser take
-    the fused chain where its guard holds. ``NLSPN``: ``NLSPNModel`` with
+    the fused chain where its guard holds. ``Diffusion_DCx4base_``: the
+    same with the X4 depth transform. ``NLSPN``: ``NLSPNModel`` with
     ``cfg.network``, the affinity options and ``cfg.prop_stencil_radius``.
     ``--opt_level`` O1-O3 compute in bf16."""
     dev = resolve_device(device)
@@ -84,13 +91,14 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> nn.Module
     if cfg.model_name == "NLSPN":
         def make():
             return NLSPNModel(cfg, dtype=dtype)
-    elif cfg.model_name == "Diffusion_DCbase_":
+    elif cfg.model_name in ("Diffusion_DCbase_", "Diffusion_DCx4base_"):
         if cfg.backbone_module not in _DEFAULT_HEAD:
             raise NotImplementedError(
                 f"backbone_module {cfg.backbone_module!r} is not ported; "
                 f"ported: {sorted(_DEFAULT_HEAD)}")
         head = cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module]
         hic = cfg.head_in_channels
+        dt_cfg = X4_DEPTH_TRANSFORM if cfg.model_name == "Diffusion_DCx4base_" else None
         if isinstance(hic, str):
             hic = tuple(int(c) for c in hic.split(","))
 
@@ -107,6 +115,7 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> nn.Module
                 fused_window_attention=cfg.fused_window_attention,
                 remat_backbone=cfg.remat_backbone,
                 use_fused_denoiser=cfg.fused_denoiser,
+                depth_transform_cfg=dt_cfg,
                 dtype=dtype,
             )
     else:

@@ -3,7 +3,8 @@
 
 1. (optional) HAHI neck over the backbone pyramid;
 2. FPN top-down collapse into one ``fpn_dim``-channel condition map;
-3. the depth transform ``t(gt)`` sizes the 16-channel half-resolution latent;
+3. the depth transform ``t(gt)`` sizes the 16-channel latent (half
+   resolution under the default transform, a quarter under the X4 one);
 4. DDIM sampling: one Python loop over the steps, tables on the device and
    no host synchronisation per step;
 5. ``inv_t`` decodes the latent to metric depth.
@@ -14,10 +15,10 @@ conv-link kernels) and one DDIM-step kernel, the counterpart of the JAX
 eval path's grouped-flat branch; each training step is one
 ``FusedSamplerStep`` on the (f32, bf16) latent pair, the counterpart of
 the JAX training branch (``fused_sampler_step``), and gradients flow back
-through all steps. Elsewhere (f32, the 'add' heads, ``use_fused_denoiser``
-off, a latent height not a multiple of 8) each step is the module denoiser
-and ``DDIMSchedule.step_from_alphas``, the JAX jnp path. The latent and
-all scheduler math stay f32.
+through all steps. Elsewhere (f32, the 'add' and 'upsample_concat' heads,
+``use_fused_denoiser`` off, a latent height not a multiple of 8) each step
+is the module denoiser and ``DDIMSchedule.step_from_alphas``, the JAX jnp
+path. The latent and all scheduler math stay f32.
 
 The ``vis`` heads also return ``pred_inter`` (steps, B, H, W, 1): every
 step's latent decoded by ``inv_t`` in one batched call, with the running
@@ -40,15 +41,18 @@ from ...ops.fused_denoiser import FusedSamplerStep, ddim_step, denoiser_chain
 from ...ops.resize import adaptive_avg_pool2d
 from ...registry import HEADS
 from ..common import ConvBNAct, DeconvBNAct
-from ..depth_transform import DeepDepthTransformWithUpsampling
+from ..depth_transform import build_depth_transform
 from .denoiser import ScheduledCNNRefine
+
+DEFAULT_DEPTH_TRANSFORM = dict(type="DeepDepthTransformWithUpsampling", hidden=16, eps=1e-6)
 
 
 class DDIMDepthEstimateHead(nn.Module):
-    """The heads' shared body, ``DeepDepthTransformWithUpsampling``; each
-    registered head sets its pyramid channels, denoiser fusion, HAHI neck
-    and ``vis``. The defaults are the JAX head's: the ResNet pyramid and
-    'add'."""
+    """The heads' shared body; each registered head sets its pyramid
+    channels, denoiser fusion, HAHI neck and ``vis``. The defaults are the
+    JAX head's: the ResNet pyramid and 'add'. ``depth_transform_cfg``
+    names the depth transform (``DEFAULT_DEPTH_TRANSFORM`` when None); the
+    head builds it with its compute dtype."""
 
     in_channels: Sequence[int] = (64, 128, 256, 512)
     fuse: str = "add"
@@ -59,6 +63,7 @@ class DDIMDepthEstimateHead(nn.Module):
                  depth_feature_dim: int = 16, inference_steps: int = 20,
                  num_train_timesteps: int = 1000, hahi_embedding_dim: int = 512,
                  timestep_schedule: str = "uniform", use_fused_denoiser: bool = True,
+                 depth_transform_cfg: Optional[Dict[str, Any]] = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         in_channels = tuple(in_channels or self.in_channels)
@@ -66,8 +71,8 @@ class DDIMDepthEstimateHead(nn.Module):
         self.inference_steps = inference_steps
         self.timestep_schedule = timestep_schedule
         self.dtype = dtype
-        self.depth_transform = DeepDepthTransformWithUpsampling(
-            hidden=depth_feature_dim, eps=1e-6, dtype=dtype)
+        self.depth_transform = build_depth_transform(
+            dict(depth_transform_cfg or DEFAULT_DEPTH_TRANSFORM, dtype=dtype))
         self.model = ScheduledCNNRefine(fpn_dim, depth_feature_dim, fuse=self.fuse,
                                         use_fused=use_fused_denoiser, dtype=dtype)
         self.schedule = DDIMSchedule(num_train_timesteps=num_train_timesteps,
@@ -242,3 +247,18 @@ class DDIMDepthEstimate_MPVIT_ADDHAHI(DDIMDepthEstimateHead):
     in_channels = (128, 216, 288, 288)
     fuse = "upsample_add"
     use_hahi = True
+
+
+@HEADS.register()
+class DDIMDepthEstimate_Swin(DDIMDepthEstimateHead):
+    """The 'bins' experiment head: Swin-L pyramid, concat fusion."""
+
+    in_channels = (192, 384, 768, 1536)
+    fuse = "upsample_concat"
+
+
+@HEADS.register()
+class DDIMDepthEstimate_Swin_Bins_ADDVis(DDIMDepthEstimate_Swin):
+    """The bins head returning every step's decoded depth."""
+
+    vis = True

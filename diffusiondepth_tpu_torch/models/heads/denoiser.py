@@ -5,19 +5,21 @@ noise embedding conv(16->64) GN(4) ReLU conv(64->C) GN(4) ReLU; timestep
 embedding table Embed(1280, C); the fusion of condition and noise
 embedding; predictor conv(C->64) GN(4) ReLU conv(64->16) GN(4) ReLU. The
 condition map comes in already at latent resolution (``upsample_condition``
-runs once, outside the sampling loop). Two fusions are ported:
+runs once, outside the sampling loop). Three fusions:
 
 * ``'add'`` (the ResNet heads): condition + timestep + noise embedding;
 * ``'upsample_add'`` (the Swin and MPViT heads): the same sum through two
-  plain 3x3 convs, ``upsample_add.convA/convB``, built only for it.
+  plain 3x3 convs, ``upsample_add.convA/convB``, built only for it;
+* ``'upsample_concat'`` (the bins heads): concat(condition + timestep,
+  noise embedding) through ``upsample_fuse.convA`` (2C -> C) and
+  ``upsample_fuse.convB``.
 
 ``fused_active(latent_h)`` holds exactly where the JAX package's does
 (``use_fused``, ``'upsample_add'``, the bf16 policy, ``latent_h % 8 ==
 0``); there the six convs run as the fused chain of
 ``ops/fused_denoiser.py`` (kernel K1 on the card, ``FusedDenoiser``: its
 backward is kernel K5). Everywhere else the module path below runs, the
-JAX package's jnp path: on the card its convolutions are cuDNN's. The
-``'upsample_concat'`` fusion of the bins heads is not ported and raises.
+JAX package's jnp path: on the card its convolutions are cuDNN's.
 """
 
 from __future__ import annotations
@@ -45,12 +47,12 @@ def _conv_gn_block(cin: int, mid: int, cout: int) -> nn.Sequential:
 class _Conv(nn.Module):
     """Holds a conv under the reference name ``conv``."""
 
-    def __init__(self, c: int):
+    def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv = nn.Conv2d(c, c, 3, 1, 1)
+        self.conv = nn.Conv2d(cin, cout, 3, 1, 1)
 
 
-FUSES = ("add", "upsample_add")
+FUSES = ("add", "upsample_add", "upsample_concat")
 
 
 class ScheduledCNNRefine(nn.Module):
@@ -65,10 +67,12 @@ class ScheduledCNNRefine(nn.Module):
         self.dtype = dtype
         self.noise_embedding = _conv_gn_block(channels_noise, 64, channels_in)
         self.time_embedding = nn.Embedding(num_timestep_embeds, channels_in)
-        if fuse == "upsample_add":
-            self.upsample_add = nn.Module()
-            self.upsample_add.convA = _Conv(channels_in)
-            self.upsample_add.convB = _Conv(channels_in)
+        if fuse != "add":
+            fusion = nn.Module()
+            fusion.convA = _Conv(channels_in * (2 if fuse == "upsample_concat" else 1),
+                                 channels_in)
+            fusion.convB = _Conv(channels_in, channels_in)
+            setattr(self, "upsample_add" if fuse == "upsample_add" else "upsample_fuse", fusion)
         self.pred = _conv_gn_block(channels_in, 64, channels_noise)
 
     def fused_active(self, latent_h: int) -> bool:
@@ -130,8 +134,12 @@ class ScheduledCNNRefine(nn.Module):
                 cond_latent.to(torch.bfloat16).contiguous(), te_b.contiguous(),
                 *self.chain_flat())
         te = te[None, None, None, :] if te.ndim == 1 else te[:, None, None, :]
-        h = cond_latent + te.to(cond_latent.dtype) + self._block(self.noise_embedding, noisy_latent)
-        if self.fuse == "upsample_add":
-            for m in (self.upsample_add.convA.conv, self.upsample_add.convB.conv):
+        feat = cond_latent + te.to(cond_latent.dtype)
+        ne = self._block(self.noise_embedding, noisy_latent)
+        concat = self.fuse == "upsample_concat"
+        h = torch.cat([feat, ne], dim=-1) if concat else feat + ne
+        if self.fuse != "add":
+            fusion = self.upsample_fuse if concat else self.upsample_add
+            for m in (fusion.convA.conv, fusion.convB.conv):
                 h = conv2d_nhwc(h, m.weight, m.bias, 1, 1, self.dtype)
         return self._block(self.pred, h)

@@ -1,10 +1,13 @@
 """Resize and adaptive pooling for NHWC tensors (port of
 ``diffusiondepth_tpu/ops/resize.py``).
 
-Separable interpolation as two small dense products with matrices built in
-numpy, matching ``torch.nn.functional.interpolate`` and
-``adaptive_avg_pool2d`` window arithmetic. The matrices take the input's
-dtype, as in the JAX package, so a bf16 map is resized with bf16 weights.
+Bilinear resize and adaptive average pooling are separable: two small
+dense products with matrices built in numpy, matching
+``torch.nn.functional.interpolate`` and ``adaptive_avg_pool2d`` window
+arithmetic. The matrices take the input's dtype, as in the JAX package, so
+a bf16 map is resized with bf16 weights. Nearest resize gathers the rows
+and columns torch's legacy 'nearest' picks, floor(i * in / out) in integer
+arithmetic; adaptive max pooling is torch's, whose windows are the same.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,3 +79,30 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size: Tuple[int, int]) -> torch.
         return x
     return _apply_hw_matrices(
         x, _adaptive_avg_matrix(h_in, h_out), _adaptive_avg_matrix(w_in, w_out))
+
+
+@functools.lru_cache(maxsize=None)
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    return np.minimum((np.arange(out_size) * in_size) // out_size, in_size - 1)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    h_in, w_in = x.shape[1], x.shape[2]
+    h_out, w_out = size
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    rows = torch.as_tensor(_nearest_index(h_in, h_out), device=x.device)
+    cols = torch.as_tensor(_nearest_index(w_in, w_out), device=x.device)
+    return x.index_select(1, rows).index_select(2, cols)
+
+
+def adaptive_max_pool2d(x: torch.Tensor, output_size: Tuple[int, int]) -> torch.Tensor:
+    if tuple(x.shape[1:3]) == tuple(output_size):
+        return x
+    y = F.adaptive_max_pool2d(x.permute(0, 3, 1, 2), tuple(output_size))
+    return y.permute(0, 2, 3, 1)
+
+
+def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    """scale_factor=2 bilinear upsampling."""
+    return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners)

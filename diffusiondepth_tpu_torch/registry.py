@@ -1,6 +1,7 @@
 """Name -> constructor registries (a copy of the ``Registry`` of
 ``diffusiondepth_tpu.registry``) for the backbones and heads that
-``backbone_name`` and ``head_specify`` select."""
+``backbone_name`` and ``head_specify`` select, and the depth transforms
+that a head's ``depth_transform_cfg`` names."""
 
 from __future__ import annotations
 
@@ -32,6 +33,16 @@ class Registry:
             )
         return self._module_dict[key]
 
+    def build(self, cfg, **extra_kwargs):
+        """From a name or an mmcv-style cfg dict ``{'type': name, **kwargs}``."""
+        if isinstance(cfg, str):
+            return self.get(cfg)(**extra_kwargs)
+        if isinstance(cfg, dict):
+            cfg = dict(cfg, **extra_kwargs)
+            return self.get(cfg.pop("type"))(**cfg)
+        raise TypeError(f"cfg must be str or dict, got {type(cfg)}")
+
 
 BACKBONES = Registry("backbones")
 HEADS = Registry("heads")
+DEPTH_TRANSFORMS = Registry("depth_transforms")

@@ -3,11 +3,12 @@
 The inverse of ``diffusiondepth_tpu/utils/convert_torch_checkpoint.py``'s
 ``convert_reference_model`` for ``Diffusion_DCbase_``: a Swin, mmbev ResNet
 (Basic, Bottleneck or CBAM blocks) or MPViT backbone under the DDIM head
-(FPN, ``DeepDepthTransformWithUpsampling``, ``ScheduledCNNRefine`` with or
-without the 'upsample_add' convs, the HAHI conv path); and of its
-``convert_nlspn`` for ``NLSPN`` (its torchvision BasicBlock stages, the
-conv/deconv + BN heads, the propagation layer). Each family's
-registered names share one tree layout; only widths and depths differ. The
+(FPN, any of the six depth transforms, ``ScheduledCNNRefine`` with the
+'upsample_add' convs, the 'upsample_concat' ones or neither, the HAHI conv
+path); and of its ``convert_nlspn`` for ``NLSPN`` (its torchvision
+BasicBlock stages, the conv/deconv + BN heads, the propagation layer).
+Each family's registered names share one tree layout; only widths and
+depths differ. The
 tree of a standalone ``models/common.py::LayerNorm`` maps onto that
 module's state dict. It takes the flax ``params`` and ``batch_stats``
 trees as nested dicts of numpy arrays and returns tensors under the
@@ -194,6 +195,31 @@ def _conv_gn_block(out, prefix, p):
     _norm(out, prefix + ".4", p["GroupNorm_1"]["GroupNorm_0"])
 
 
+def _depth_transform(out, d, dt, dts):
+    """The JAX transform's tree (encoder ``enc1..3``; decoder ``dec1/dec2``
+    for ``DeepDepthTransform``, ``dec_up1/dec_up2`` for X4, else
+    ``dec_up``; then ``dec_out``) under the names of
+    ``models/depth_transform.py``."""
+    for i, key in enumerate(k for k in ("enc1", "enc2", "enc3") if k in dt):
+        if "kernel" in dt[key]:  # the 1x1 encoder's bare convs
+            _conv(out, f"{d}conv_transform.{i}", dt[key])
+        else:
+            _conv_bn(out, f"{d}conv_transform.{i}.0", f"{d}conv_transform.{i}.1", dt[key],
+                     dts.get(key))
+    inv = d + "conv_inv_transform."
+    if "dec1" in dt:
+        for i, key in enumerate(("dec1", "dec2")):
+            _conv_bn(out, f"{inv}{i}.0", f"{inv}{i}.1", dt[key], dts.get(key))
+        return
+    if "dec_up1" in dt:
+        _conv(out, inv + "0", dt["dec_up1"]["deconv"], deconv=True)
+        _conv_bn(out, inv + "1", inv + "2", dt["dec_up2"], dts.get("dec_up2"), deconv=True)
+        _conv(out, inv + "4.0", dt["dec_out"]["Conv_0"])
+        return
+    _conv_bn(out, inv + "0", inv + "1", dt["dec_up"], dts.get("dec_up"), deconv=True)
+    _conv(out, inv + "3.0", dt["dec_out"]["Conv_0"])
+
+
 def _head(out, pre, p, s):
     for key in p:
         m = re.fullmatch(r"conv_lateral_(\d+)", key)
@@ -207,15 +233,9 @@ def _head(out, pre, p, s):
             _conv_bn(out, f"{pre}conv_up.{i}.0", f"{pre}conv_up.{i}.1", p[key], s.get(key),
                      deconv=True)
 
-    dt, dts = p["depth_transform"], s.get("depth_transform", {})
-    d = pre + "depth_transform."
-    _conv_bn(out, d + "conv_transform.0.0", d + "conv_transform.0.1", dt["enc1"],
-             dts.get("enc1"))
-    _conv_bn(out, d + "conv_transform.1.0", d + "conv_transform.1.1", dt["enc2"],
-             dts.get("enc2"))
-    _conv_bn(out, d + "conv_inv_transform.0", d + "conv_inv_transform.1",
-             dt["dec_up"], dts.get("dec_up"), deconv=True)
-    _conv(out, d + "conv_inv_transform.3.0", dt["dec_out"]["Conv_0"])
+    if "depth_transform" in p:  # the reciprocal transforms have no parameters
+        _depth_transform(out, pre + "depth_transform.", p["depth_transform"],
+                         s.get("depth_transform", {}))
 
     mp = p["model"]
     m = pre + "model."
@@ -223,8 +243,11 @@ def _head(out, pre, p, s):
     _conv_gn_block(out, m + "noise_embedding", mp["noise_embedding"])
     _conv_gn_block(out, m + "pred", mp["pred"])
     if "fuse_conv_a" in mp:
-        _conv(out, m + "upsample_add.convA.conv", mp["fuse_conv_a"])
-        _conv(out, m + "upsample_add.convB.conv", mp["fuse_conv_b"])
+        # the concat convs take twice the channels in
+        a = mp["fuse_conv_a"]["kernel"]
+        fusion = "upsample_fuse" if a.shape[2] == 2 * a.shape[3] else "upsample_add"
+        _conv(out, m + fusion + ".convA.conv", mp["fuse_conv_a"])
+        _conv(out, m + fusion + ".convB.conv", mp["fuse_conv_b"])
 
     if "hahineck" in p:
         hp, hs = p["hahineck"], s.get("hahineck", {})

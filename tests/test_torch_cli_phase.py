@@ -105,3 +105,19 @@ def test_cli_nyu_phase_runs_on_the_cpu(capsys):
     assert len(train["step_ms"]) == 3 and len(train["loader_wait_share"]) == 3
     assert train["split"] == {"train": 3, "val": 1, "test": 1}
     assert lines[2]["reload_bit_equal"] and len(lines[3]["metric_rows"]) == 1
+
+
+def test_cli_phase_runs_x4_on_the_cpu(capsys):
+    """Phase 11 at the micro size with --model_name Diffusion_DCx4base_ (the
+    README's X4 command; a 96-pixel crop, 96 % 4 == 0): main's training
+    run, --test_only with its bit-equal reload and submission PNGs, and
+    --resume, no kernel launched."""
+    flags = [("Diffusion_DCx4base_" if f == "Diffusion_DCbase_" else f) for f in MICRO]
+    launches = chip_smoke.cli_phase(port, torch, torch.device("cpu"), {}, {}, flags=flags,
+                                    tree=TREE, phase="cli-x4")
+    assert launches == {k: 0 for k in port.LAUNCHES}
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"phase": "cli-x4"')]
+    assert [line.get("run") for line in lines] == ["train", "loader", "test_only", "resume",
+                                                  None]
+    assert lines[2]["reload_bit_equal"] and lines[2]["submission_pngs"] == 8

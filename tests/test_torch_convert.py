@@ -1,7 +1,10 @@
 """Weight bridge round trip: port state dict -> JAX trees through the JAX
 package's converter -> back through ``jax_to_state_dict``, exactly, for
-each ported backbone family; and the routing the composition shares with
-the JAX package: the default model, and the fused-chain guard."""
+each ported backbone family, ``Diffusion_DCx4base_`` on each and the
+concat head; and the routing the composition shares with the JAX package:
+the default model, and the fused-chain guard."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -33,14 +36,32 @@ from test_torch_support import (  # noqa: E402
 
 # family -> the JAX converter's Swin depths (None: not a Swin)
 SWIN_DEPTHS = {"swin": (1, 2, 1, 1), "res18": None, "mpvit_tiny": None}
+# model variants: "<family>+x4" is Diffusion_DCx4base_ on the family's
+# model, "swin+bins" swin_micro under the concat head DDIMDepthEstimate_Swin
+VARIANTS = ["swin+x4", "res18+x4", "mpvit_tiny+x4", "swin+bins"]
+X4_CFG = dict(type="DeepDepthTransformWithUpsamplingX4", hidden=16, eps=1e-6)
+
+
+def _split(case):
+    family, _, variant = case.partition("+")
+    return family, variant
 
 torch.set_num_threads(1)
 
 
-def _port_state_dict(family, seed=0):
-    """A port model of ``family`` under its head with every tensor random,
-    BatchNorm running statistics included."""
-    model = build_model(port_config(steps=1, family=family), device="cpu")
+def _port_config(case):
+    family, variant = _split(case)
+    cfg = port_config(steps=1, family=family,
+                      head="DDIMDepthEstimate_Swin" if variant == "bins" else None)
+    if variant == "x4":
+        cfg = dataclasses.replace(cfg, model_name="Diffusion_DCx4base_")
+    return cfg
+
+
+def _port_state_dict(case, seed=0):
+    """A port model of ``case`` with every tensor random, BatchNorm running
+    statistics included."""
+    model = build_model(_port_config(case), device="cpu")
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for k, v in model.state_dict().items():
@@ -50,27 +71,43 @@ def _port_state_dict(family, seed=0):
     return {k: v.numpy() for k, v in model.state_dict().items()}
 
 
-def _jax_init(family):
+def _jax_init(case):
+    family, variant = _split(case)
     batch = make_batch(0, b=1, h=32, w=48)
-    model = jax_model(steps=1, family=family)
-    if family == "swin":
+    model = jax_model(steps=1, family=family,
+                      head="DDIMDepthEstimate_Swin" if variant == "bins" else None)
+    if variant == "x4":
+        model = model.clone(depth_transform_cfg=X4_CFG)
+        b, h, w, _ = batch["gt"].shape
+        lat = np.zeros((b, h // 4, w // 4, 16), np.float32)
+        return module_variables(model, batch, train=False, init_latent=lat)
+    if case == "swin":
         return jax_variables(model, batch)
     return module_variables(model, batch, train=False, init_latent=init_latent(0, batch))
 
 
-@pytest.mark.parametrize("family", sorted(SWIN_DEPTHS))
+@pytest.mark.parametrize("family", sorted(SWIN_DEPTHS) + VARIANTS)
 def test_state_dict_round_trip_is_exact(family):
     """convert_reference_model + merge_params over the JAX model's own init
     trees, then jax_to_state_dict: the same key set and every tensor equal
     bit for bit (the maps are transposes only). The Res head has no
-    'upsample_add' convs on either side."""
+    'upsample_add' convs on either side. The JAX converter reads the
+    default depth transform only: under the X4 transform the port's
+    transform is left out of the comparison (its tree is held by the
+    leaf-count test below); the concat convs go through the converter's
+    'upsample_fuse' names."""
     sd = _port_state_dict(family)
-    params, stats = convert_reference_model(sd, swin_depths=SWIN_DEPTHS[family] or (2, 2, 18, 2))
+    if _split(family)[1] == "x4":
+        sd = {k: v for k, v in sd.items() if ".depth_transform." not in k}
+    params, stats = convert_reference_model(
+        sd, swin_depths=SWIN_DEPTHS[_split(family)[0]] or (2, 2, 18, 2))
 
     variables = _jax_init(family)
     merged_p = merge_params(variables["params"], params)
     merged_s = merge_params(variables["batch_stats"], stats)
     back = jax_to_state_dict(merged_p, merged_s)
+    if _split(family)[1] == "x4":
+        back = {k: v for k, v in back.items() if ".depth_transform." not in k}
 
     assert sorted(back) == sorted(sd)
     for k, v in sd.items():
@@ -78,13 +115,14 @@ def test_state_dict_round_trip_is_exact(family):
         np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
 
 
-@pytest.mark.parametrize("family", sorted(SWIN_DEPTHS) + ["res18_cbam"])
+@pytest.mark.parametrize("family", sorted(SWIN_DEPTHS) + ["res18_cbam"] + VARIANTS)
 def test_every_jax_leaf_reaches_the_port(family):
     """Every leaf of the JAX model's params and batch_stats is used: the
     port's state dict has exactly as many values as the JAX trees, and it
-    loads strictly into the port's model. ``res18_cbam``: the res18
-    layout with CBAM blocks, a backbone no registered name builds (no
-    reference converter reads CBAM either), held alone."""
+    loads strictly into the port's model (the X4 transform's tree and the
+    concat convs included). ``res18_cbam``: the res18 layout with CBAM
+    blocks, a backbone no registered name builds (no reference converter
+    reads CBAM either), held alone."""
     if family == "res18_cbam":
         x = np.zeros((1, 32, 48, 3), np.float32)
         variables = module_variables(
@@ -93,7 +131,7 @@ def test_every_jax_leaf_reaches_the_port(family):
         sd = backbone_state_dict(variables)
     else:
         variables = _jax_init(family)
-        port = build_model(port_config(steps=1, family=family), device="cpu")
+        port = build_model(_port_config(family), device="cpu")
         sd = jax_to_state_dict(variables["params"], variables["batch_stats"])
     n_jax = sum(np.asarray(x).size for x in jax.tree_util.tree_leaves(variables))
     assert sum(v.numel() for v in sd.values()) == n_jax
@@ -134,7 +172,7 @@ def test_default_config_builds_the_jax_default_model():
     assert sum(v.numel() for v in model.state_dict().values()) == n_jax
 
 
-_GUARD = [(fuse, use_fused, bf16, h) for fuse in ("add", "upsample_add")
+_GUARD = [(fuse, use_fused, bf16, h) for fuse in ("add", "upsample_add", "upsample_concat")
           for use_fused in (True, False) for bf16 in (True, False) for h in (16, 12)]
 
 
@@ -142,8 +180,10 @@ _GUARD = [(fuse, use_fused, bf16, h) for fuse in ("add", "upsample_add")
 def test_fused_guard_routes_as_jax(fuse, use_fused, bf16, latent_h, monkeypatch):
     """The port's fused_active(latent_h) equals the JAX denoiser's (its TPU
     term set true, the card standing where JAX tests for a TPU), and the
-    call takes the fused chain exactly then: 'add', use_fused off, f32 and
-    latent_h % 8 != 0 each run the module path."""
+    call takes the fused chain exactly then: 'add', 'upsample_concat',
+    use_fused off, f32 and latent_h % 8 != 0 each run the module path.
+    latent_h 16 is the X4 latent of a 64-pixel image (12 of a 48-pixel
+    one)."""
     monkeypatch.setattr(jden.ScheduledCNNRefine, "_on_tpu", staticmethod(lambda: True))
     jmod = jden.ScheduledCNNRefine(channels_in=64, fuse=fuse, use_fused=use_fused,
                                    dtype=jnp.bfloat16 if bf16 else None)
@@ -165,9 +205,10 @@ def test_fused_guard_routes_as_jax(fuse, use_fused, bf16, latent_h, monkeypatch)
 
 
 def test_unknown_fuse_and_backbone_module_raise():
-    """No fallback: an unported fuse or backbone module raises."""
-    with pytest.raises(ValueError, match="upsample_concat"):
-        pden.ScheduledCNNRefine(64, 16, fuse="upsample_concat")
+    """No fallback: a fuse that neither package has, or an unported
+    backbone module, raises."""
+    with pytest.raises(ValueError, match="bogus"):
+        pden.ScheduledCNNRefine(64, 16, fuse="bogus")
     cfg = Config(model_name="Diffusion_DCbase_", backbone_module="nlspn").finalize()
     with pytest.raises(NotImplementedError, match="nlspn"):
         build_model(cfg, device="cpu")

@@ -381,3 +381,91 @@ def test_family_launch_counts(dev, family):
                     conv_link_bwd=6 * (steps + 1), sched_bwd=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(loss))
+
+
+# the six links of the chain for K1 (cin, cout, gn, add, stats) and K5
+# (cin, cout, gn_next, gn_in, add), as in the tests above
+_K1_LINKS = [(16, 64, False, False, True), (64, 256, True, False, True),
+             (256, 256, True, True, False), (256, 256, False, False, False),
+             (256, 64, False, False, True), (64, 16, True, False, True)]
+_K5_LINKS = [(16, 64, True, False, False), (64, 256, True, True, False),
+             (256, 256, False, True, True), (256, 256, False, False, False),
+             (256, 64, True, False, False), (64, 16, True, True, False)]
+
+
+@pytest.mark.parametrize("B,H,w", [(8, 88, 304), (4, 88, 226)], ids=["serve-x4", "train-x4"])
+def test_x4_latent_kernels_match_plain(dev, B, H, w):
+    """The Diffusion_DCx4base_ latents, a quarter of the image: (8, 88, 304)
+    at serve (304 = 2 x 128 + 48 pixels a row), (4, 88, 226) for a
+    training micro-batch of 352x904 crops (226 = 128 + 98). K1 and K5 at
+    each of the six links with the tolerances and bitwise repeats of the
+    tests above; K3, K2 and K6 on the 16-channel latent with theirs."""
+    for link in _K1_LINKS:
+        test_conv_link_matches_plain(dev, *link, B, H, w)
+    for link in _K5_LINKS:
+        test_conv_link_bwd_matches_plain(dev, *link, B, H, w)
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    u6 = _rand(g, dev, B, H, w, 16, dtype=bf)
+    x = _rand(g, dev, B, H, w, 16)
+    a, b = 1 + _rand(g, dev, B, 16, scale=0.1), _rand(g, dev, B, 16, scale=0.1)
+    sched = torch.tensor([0.3, 0.954, 0.5, 0.866], device=dev)
+    out, ref = fd.ddim_step(u6, a, b, x, sched), fd.ddim_step_plain(u6, a, b, x, sched)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    xp, xpb = fd.sched_step(u6, a, b, x, sched)
+    rp, rpb = fd.sched_step_plain(u6, a, b, x, sched)
+    assert (xp - rp).abs().max() <= 1e-5 * rp.abs().max()
+    assert (xpb.float() - rpb.float()).abs().max() <= 1e-2 * rp.abs().max()
+    dxp, dxpb = _rand(g, dev, B, H, w, 16), _rand(g, dev, B, H, w, 16, dtype=bf)
+    coefs = _coefs(g, dev, B, 16)
+    dx, t6, ps = fd.sched_bwd(dxp, dxpb, u6, coefs, sched)
+    rdx, rt6, rps = fd.sched_bwd_plain(dxp, dxpb, u6, coefs, sched)
+    torch.cuda.synchronize()
+    assert (dx - rdx).abs().max() <= 1e-5 * rdx.abs().max()
+    assert (t6.float() - rt6.float()).abs().max() <= 1e-2 * rt6.float().abs().max()
+    assert (ps.sum(1) - rps.sum(1)).abs().max() <= 1e-4 * rps.sum(1).abs().max()
+
+
+@pytest.mark.parametrize("model_name,head", [
+    ("Diffusion_DCx4base_", "DDIMDepthEstimate_Swin_ADDHAHI"),
+    ("Diffusion_DCbase_", "DDIMDepthEstimate_Swin")], ids=["x4", "bins"])
+def test_x4_and_concat_launch_counts(dev, model_name, head):
+    """swin_micro (5 blocks) under the bf16 policy, 2 DDIM steps on a 64x96
+    batch of 2. The X4 model's latent (16 x 24) takes the fused chain: per
+    eval step 6 K1 + 1 K3, in training per sampler step 6 K1 + K2 forward
+    and 6 K1 + K6 + 6 K5 backward, plus the ddim_loss call's 6 K1 and its
+    backward's 6 K1 + 6 K5. The concat head runs its denoiser on cuDNN: no
+    K1-K3, K5 or K6. Both run K4 once a block, again in the
+    rematerialised backward, and K7 once a block."""
+    steps, blocks = 2, 5
+    cfg = port.Config(model_name=model_name, backbone_module="swin",
+                      backbone_name="swin_micro", head_specify=head, inference_steps=steps,
+                      opt_level="O1", batch_size=2,
+                      head_in_channels="32,64,128,256").finalize()
+    model = port.build_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"rgb": torch.randn(2, 64, 96, 3, generator=g, device=dev),
+             "gt": torch.rand(2, 64, 96, 1, generator=g, device=dev) * 8 + 1}
+    chain = model_name == "Diffusion_DCx4base_"
+    port.reset_launch_counts()
+    pred, met, _ = port.make_eval_step(model)(batch, generator=g)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in LAUNCHES}
+    want["window_attention"] = blocks
+    if chain:
+        want.update(conv_link=6 * steps, ddim_step=steps)
+    assert dict(LAUNCHES) == want
+    assert bool(torch.isfinite(pred).all()) and bool(torch.isfinite(met).all())
+
+    step = port.make_train_step(model, port.LossComputer(cfg),
+                                port.make_optimizer(cfg, 10, model))
+    port.reset_launch_counts()
+    loss, _, _ = step(batch, generator=g)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in LAUNCHES}
+    want.update(window_attention=2 * blocks, window_attention_bwd=blocks)
+    if chain:
+        want.update(conv_link=2 * 6 * (steps + 1), sched_step=steps,
+                    conv_link_bwd=6 * (steps + 1), sched_bwd=steps)
+    assert dict(LAUNCHES) == want
+    assert bool(torch.isfinite(loss))
