@@ -160,8 +160,27 @@ Phases, one JSON line each:
              in the backbone, neck, FPN, denoiser and the X4 decoder's three
              layers, the flagship train launch counts, the device time of one
              step by part.
+21. export-serve - the deployment path at the serve configuration: the
+             seed-7240 weights written as a reference-layout .pt
+             ({"net": state dict}) and converted by tools/convert_checkpoint
+             (every tensor replaced); three artifacts exported by
+             tools/export_model with seed-7241 weights at 8 x 352x1216, 20
+             steps, bf16 (plain, --tta, use_pallas; export seconds and file
+             size); each loaded, given the converted checkpoint and served 1
+             warm-up and 3 timed requests (latency, frames/s, peak memory)
+             beside the eager make_eval_step on the same batches and starting
+             latents: pred bit-equal (else the first operator where the two
+             parted is reported) and exactly 120 K1, 20 K3 and 24 K4 (K8
+             under use_pallas) per request; tools/serve.serve_dir over 11 PNGs
+             (a batch of 8 and a ragged 3) against the eager predictions; one
+             served request traced with torch.profiler and summarised by
+             tools/analyze_trace (the three kernels with their counts); the
+             operators' dispatch cost (1000 K3 calls through the operator and
+             direct); tools/eval_parity with 2 seeds on phase 11's 8 KITTI-DC
+             test frames at batch 1 (finite statistics).
 
-Then a line {"kernels": [...]}, the run's seconds and, last,
+Then a line {"kernels": [...]} (each kernel's "dispatch": "op" for the
+four torch.library operators, "direct" for the rest), the run's seconds and, last,
 {"ok": true, "device": {...}}.
 Any failed check raises, and the script exits non-zero.
 """
@@ -1071,6 +1090,365 @@ def cli_nyu_phase(port, torch, device, flags=None, tree=None, hw=NYU_HW, batch=1
     return launches
 
 
+# phase 21's flagship: the serve configuration as main's flags, seed 7240
+FLAGSHIP_FLAGS = ["--model_name", "Diffusion_DCbase_", "--backbone_module", "swin",
+                  "--backbone_name", "swin_large_naive_l4w722422k",
+                  "--head_specify", "DDIMDepthEstimate_Swin_ADDHAHI",
+                  "--inference_steps", str(STEPS), "--opt_level", "O1", "--seed", "7240"]
+# the artifacts are exported with another seed's weights: serving them the
+# converted checkpoint shows that the weights come from the checkpoint
+EXPORT_SEED = 7241
+# the kernels that are torch.library operators (ops/library.py)
+OP_KERNELS = ("conv_link", "ddim_step", "window_attention", "window_attention_split")
+
+
+def first_divergence(torch, run_a, run_b):
+    """Where two runs of the same computation part: each runs under a
+    dispatch mode that logs every ATen (or custom) operator with the shape
+    and float64 sum of its first output; returns (index, operator, sums)
+    of the first entry that differs, or None."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            first = out[0] if isinstance(out, (tuple, list)) and out else out
+            if torch.is_tensor(first) and first.is_floating_point():
+                self.rows.append((str(func), tuple(first.shape), first.double().sum().item()))
+            else:
+                self.rows.append((str(func), None, None))
+            return out
+
+    logs = []
+    for run in (run_a, run_b):
+        with torch.no_grad(), Log() as log:
+            run()
+        logs.append(log.rows)
+    for i, (a, b_) in enumerate(zip(*logs)):
+        if a != b_ and not (a[2] != a[2] and b_[2] != b_[2]):  # NaN sums agree
+            return i, a, b_
+    return None if len(logs[0]) == len(logs[1]) else (min(map(len, logs)), "length", None)
+
+
+def _trace_and_dispatch(torch, module, batch, lat_shape, gen0, steps, n_blk, root):
+    """Phase 21 (e) and (f): one request served from the plain artifact
+    traced with torch.profiler and summarised by tools/analyze_trace.py
+    (K1, K4 and K3 among the top kernels with their exact counts), then
+    the operators' dispatch cost: 1000 K3 launches at a small shape
+    through the operator and through its CUDA implementation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusiondepth_tpu_torch.ops import fused_denoiser as fd
+    from diffusiondepth_tpu_torch.tools import analyze_trace
+
+    def sync():
+        torch.cuda.synchronize()
+
+    dev = torch.device("cuda")
+    # ---- (e) one served request traced with torch.profiler
+    trace = os.path.join(root, "trace.json")
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        module(batch, torch.randn(lat_shape, generator=gen0, device=dev))
+        sync()
+    prof.export_chrome_trace(trace)
+    summary_text = analyze_trace.summarize(trace, top=40)
+    print(summary_text, flush=True)
+    total_us, dur, cnt = analyze_trace.breakdown(analyze_trace.load_events(trace), "kernel")
+    top = [ln.split("  ", 2)[-1] for ln in summary_text.splitlines() if " n=" in ln]
+    counts = {}
+    for k, want in (("conv_link", 6 * steps), ("window_attention", n_blk),
+                    ("ddim_step", steps)):
+        counts[k] = sum(c for name_, c in cnt.items() if k in name_)
+        check(counts[k] == want, f"trace: {counts[k]} {k} kernels, expected {want}")
+        check(any(k in t for t in top), f"trace: no {k} kernel among the top kernels")
+    emit({"phase": "export-serve", "step": "trace", "device_ms": total_us / 1e3,
+          "kernels": sum(cnt.values()), "op_kernel_counts": counts,
+          "op_kernel_ms": {k: sum(v for n_, v in dur.items() if k in n_) / 1e3
+                           for k in counts}})
+
+    # ---- (f) the operators' dispatch cost: 1000 K3 launches at a small
+    # shape through the operator and through its CUDA implementation
+    g = torch.Generator(device=dev).manual_seed(1)
+    u6 = torch.randn(1, 8, 8, 16, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(1, 8, 8, 16, generator=g, device=dev)
+    a, o = torch.ones(1, 16, device=dev), torch.zeros(1, 16, device=dev)
+    sched = torch.tensor([0.3, 0.954, 0.5, 0.866], device=dev)
+
+    def per_call_us(fn, n=1000):
+        for _ in range(20):
+            fn(u6, a, o, x, sched)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(u6, a, o, x, sched)
+        sync()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    with torch.no_grad():
+        runs = {"op": [], "direct": []}
+        for which in ("op", "direct", "direct", "op"):
+            runs[which].append(per_call_us(fd.ddim_step if which == "op"
+                                           else fd.ddim_step_cuda))
+    op_us, direct_us = statistics.mean(runs["op"]), statistics.mean(runs["direct"])
+    emit({"phase": "export-serve", "step": "dispatch", "kernel": "ddim_step",
+          "shape": [1, 8, 8, 16], "calls": 1000, "op_us_per_call": runs["op"],
+          "direct_us_per_call": runs["direct"], "op_overhead_us": op_us - direct_us,
+          "op_calls_per_request": 7 * steps + n_blk,
+          "overhead_ms_per_request": (op_us - direct_us) * (7 * steps + n_blk) / 1e3})
+
+
+def _eval_parity_step(port, torch, dev, flags, ckpt, root, test_tree):
+    """Phase 21 (g): eval_parity with 2 latent seeds over phase 11's
+    KITTI-DC test frames (``test_tree``), batch 1, on the converted
+    checkpoint; the statistics must be finite."""
+    import contextlib
+    import io
+
+    from diffusiondepth_tpu_torch.config import parse_args
+    from diffusiondepth_tpu_torch.tools import eval_parity
+
+    test_tree = test_tree or KITTI_TREE["test"]
+    kroot = os.path.join(root, "kitti")
+    write_kitti_tree(kroot, {"test": test_tree})
+    pcfg = parse_args(flags + ["--data_name", "KITTIDC", "--dir_data", kroot,
+                               "--split_json", os.path.join(kroot, "split.json"),
+                               "--test_batch_size", "1", "--pretrain", ckpt])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = eval_parity.run_parity_eval(pcfg, n_seeds=2, device=dev)
+    parity_s = time.perf_counter() - t0
+    stats = {k: [v["mean"], v["std"]] for k, v in report["metrics"].items()}
+    check(all(math.isfinite(x_) for v in stats.values() for x_ in v),
+          f"eval_parity: non-finite statistics {stats}")
+    check(report["protocol"]["num_samples"] == test_tree[0], f"eval_parity: {report['protocol']}")
+    emit({"phase": "export-serve", "step": "eval_parity", "protocol": report["protocol"],
+          "mean_std": stats, "seconds": parity_s})
+
+
+def export_serve_phase(port, torch, device, flags=None, shape=(B, H_IMG, W_IMG), frames=11,
+                       test_tree=None) -> dict:
+    """Phase 21, the deployment path at the flagship's full width: a
+    reference checkpoint converted, three artifacts exported and served,
+    PNG directories served, a served request traced, the operators'
+    dispatch cost and eval_parity's two seeds, on ``device``. ``flags``
+    (main's model flags, ``FLAGSHIP_FLAGS`` by default), the serving
+    ``shape`` (B, H, W), the PNG ``frames`` and the eval ``test_tree``
+    let a CPU run rehearse the phase at a small size; the trace and the
+    dispatch cost need the card. Returns the plain artifact's launches per
+    request."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from diffusiondepth_tpu_torch.config import parse_args
+    from diffusiondepth_tpu_torch.native.png import read_png, write_png
+    from diffusiondepth_tpu_torch.tools import convert_checkpoint
+    from diffusiondepth_tpu_torch.tools import export_model as em
+    from diffusiondepth_tpu_torch.tools.serve import pred_to_png, serve_dir
+    from diffusiondepth_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cuda = device.type == "cuda"
+    dev = str(device)
+    flags = flags or FLAGSHIP_FLAGS
+    B, H_IMG, W_IMG = shape
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="export_serve_")
+    try:
+        # ---- (a) a reference-layout .pt of the seed-7240 weights -> a port checkpoint
+        cfg = parse_args(flags)
+        steps = cfg.inference_steps
+        ref = port.build_model(cfg, device=dev)
+        n_blk = sum(len(st.blocks) for st in ref.depth_backbone.stages)
+        sd = {k: v.detach().cpu() for k, v in ref.state_dict().items()}
+        del ref
+        ref_pt = os.path.join(root, "model_00000.pt")
+        torch.save({"net": sd}, ref_pt)
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = convert_checkpoint.main(["--torch", ref_pt, "--out_dir",
+                                          os.path.join(root, "converted"), "--device", dev,
+                                          *flags])
+        convert_s = time.perf_counter() - t0
+        m = re.search(r"\((\d+)/(\d+) tensors replaced\)", text.getvalue())
+        check(rc == 0 and m is not None, f"convert_checkpoint: rc {rc}, {text.getvalue()!r}")
+        replaced, total = int(m.group(1)), int(m.group(2))
+        check(replaced == total == len(sd), f"convert_checkpoint replaced {replaced}/{total}, "
+              f"the reference holds {len(sd)}")
+        ckpt = os.path.join(root, "converted", "model_00000.ckpt")
+        conv_sd = load_checkpoint(ckpt)["state_dict"]
+        check(all(torch.equal(conv_sd[k], v) for k, v in sd.items()),
+              "the converted checkpoint differs from the reference's tensors")
+        emit({"phase": "export-serve", "step": "convert", "replaced": replaced, "total": total,
+              "reference_bytes": os.path.getsize(ref_pt), "seconds": convert_s})
+        del sd
+
+        # ---- (b) three artifacts at 8 x 352x1216, 20 steps, bf16, exported
+        # with the seed-7241 weights
+        variants = {"plain": (False, False), "tta": (False, True), "use_pallas": (True, False)}
+        spec = em.serving_batch_spec(B, H_IMG, W_IMG)
+        artifacts = {}
+        for name, (pallas, tta) in variants.items():
+            model = port.build_model(dataclasses.replace(cfg, seed=EXPORT_SEED, use_pallas=pallas),
+                                     device=dev)
+            t0 = time.perf_counter()
+            ep = em.export_predict(model, spec, tta_flip=tta)
+            export_s = time.perf_counter() - t0
+            path = os.path.join(root, f"{name}.pt2")
+            t0 = time.perf_counter()
+            em.save_exported(ep, path)
+            save_s = time.perf_counter() - t0
+            calls = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+            ops = {k: calls.count(f"diffusiondepth.{k}.default") for k in OP_KERNELS}
+            emit({"phase": "export-serve", "step": "export", "artifact": name,
+                  "export_s": export_s, "save_s": save_s, "bytes": os.path.getsize(path),
+                  "graph_nodes": len(calls), "operator_nodes": ops})
+            artifacts[name] = path
+            del model, ep
+            sync()
+
+        # ---- (c) serve the loaded artifacts the converted checkpoint: one
+        # warm-up and 3 timed requests each, against the eager make_eval_step
+        # on the same weights, batches and starting latents
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+        def request():
+            depth = torch.rand(B, H_IMG, W_IMG, 1, generator=gen, device=dev) * 79 + 1
+            valid = torch.rand(B, H_IMG, W_IMG, 1, generator=gen, device=dev) < 0.3
+            gt = depth * valid
+            return {"rgb": torch.randn(B, H_IMG, W_IMG, 3, generator=gen, device=dev),
+                    "dep": gt, "gt": gt, "depth_map": gt, "depth_mask": valid.float()}
+
+        batches = [request() for _ in range(4)]
+        per_request, keep = {}, {}
+        for name, (pallas, tta) in variants.items():
+            t0 = time.perf_counter()
+            module = em.load_exported(artifacts[name]).module()
+            module.load_state_dict(conv_sd)
+            sync()
+            load_s = time.perf_counter() - t0
+            eager = port.build_model(dataclasses.replace(cfg, use_pallas=pallas), device=dev)
+            eager.load_state_dict(conv_sd)
+            step = port.make_eval_step(eager, tta_flip=tta)
+            lat_shape = em.latent_shape(eager, B, H_IMG, W_IMG, tta)
+            lats = [torch.randn(lat_shape, generator=gen, device=dev) for _ in batches]
+            with torch.no_grad():
+                module(batches[0], lats[0])
+            step(batches[0], init_latent=lats[0])
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            port.reset_launch_counts()
+            art_ms, preds = [], []
+            with torch.no_grad():
+                for b_, l_ in zip(batches[1:], lats[1:]):
+                    t0 = time.perf_counter()
+                    preds.append(module(b_, l_))
+                    sync()
+                    art_ms.append(1e3 * (time.perf_counter() - t0))
+            launches = dict(port.LAUNCHES)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+            eager_ms, equal = [], []
+            for b_, l_, p in zip(batches[1:], lats[1:], preds):
+                t0 = time.perf_counter()
+                e, _, _ = step(b_, init_latent=l_)
+                sync()
+                eager_ms.append(1e3 * (time.perf_counter() - t0))
+                equal.append(torch.equal(p, e))
+                check(tuple(p.shape) == (B, H_IMG, W_IMG, 1) and bool(torch.isfinite(p).all()),
+                      f"export-serve {name}: pred {tuple(p.shape)} or not finite")
+            if not all(equal):
+                with torch.no_grad():
+                    part = first_divergence(
+                        torch, lambda: module(batches[1], lats[1]),
+                        lambda: em.make_predict_fn(eager, tta)(batches[1], lats[1]))
+                check(False, f"export-serve {name}: pred differs from eager ({equal}); "
+                      f"first divergence (index, artifact, eager): {part}")
+            expect = {k: 0 for k in port.LAUNCHES}
+            if cuda:
+                expect.update({"conv_link": 6 * steps, "ddim_step": steps,
+                               ("window_attention_split" if pallas else "window_attention"): n_blk})
+            per_request[name] = {k: v // 3 for k, v in launches.items()}
+            check(launches == {k: 3 * v for k, v in expect.items()},
+                  f"export-serve {name}: launches {launches} != 3 x {expect}")
+            emit({"phase": "export-serve", "step": "serve", "artifact": name,
+                  "batch": 2 * B if tta else B, "image": [H_IMG, W_IMG], "steps": steps,
+                  "load_s": load_s, "latency_ms": art_ms,
+                  "frames_per_s": B * 3 / (sum(art_ms) / 1e3), "eager_latency_ms": eager_ms,
+                  "eager_frames_per_s": B * 3 / (sum(eager_ms) / 1e3),
+                  "max_memory_allocated_gb": peak_gb, "bit_equal_to_eager": equal,
+                  "launches_per_request": per_request[name], "expected_per_request": expect})
+            if name == "plain":
+                keep = {"module": module, "eager": eager}
+            del module, eager, step, preds
+            sync()
+
+        # ---- (d) serve_dir over 11 PNGs: one batch of 8 and a ragged 3
+        rng = np.random.RandomState(0)
+        dirs = {k: os.path.join(root, k) for k in ("rgb", "dep", "out")}
+        for d in dirs.values():
+            os.makedirs(d)
+        names = [f"{i:010d}.png" for i in range(frames)]
+        for n in names:
+            write_png(os.path.join(dirs["rgb"], n),
+                      (rng.rand(H_IMG, W_IMG, 3) * 255).astype(np.uint8))
+            dep = (rng.rand(H_IMG, W_IMG) * 80 * 256) * (rng.rand(H_IMG, W_IMG) < 0.05)
+            write_png(os.path.join(dirs["dep"], n), dep.astype(np.uint16))
+        t0 = time.perf_counter()
+        written = serve_dir(artifacts["plain"], ckpt, dirs["rgb"], dirs["out"],
+                            dep_dir=dirs["dep"], seed=0, device=dev)
+        serve_dir_s = time.perf_counter() - t0
+        check(sorted(os.path.basename(p) for p in written) == names,
+              f"serve_dir wrote {len(written)} files")
+        gen0 = torch.Generator(device=dev).manual_seed(0)
+        predict = em.make_predict_fn(keep["eager"])
+        lat_shape = em.latent_shape(keep["eager"], B, H_IMG, W_IMG)
+        wrong = []
+        for i0 in range(0, len(names), B):
+            chunk = names[i0:i0 + B]
+            padded = chunk + [chunk[-1]] * (B - len(chunk))
+            rgb = np.stack([read_png(os.path.join(dirs["rgb"], n)) for n in padded])
+            dep = np.stack([read_png(os.path.join(dirs["dep"], n)) for n in padded])
+            dep_t = torch.from_numpy(dep.astype(np.float32)[..., None] / 256.0).to(dev)
+            batch = {"rgb": torch.from_numpy(rgb.astype(np.float32) / 255.0).to(dev),
+                     "dep": dep_t, "gt": dep_t, "depth_map": dep_t,
+                     "depth_mask": (dep_t > 0).float()}
+            with torch.no_grad():
+                pred = predict(batch, torch.randn(lat_shape, generator=gen0, device=dev))
+            pred = pred.float().cpu().numpy()
+            for j, n in enumerate(chunk):
+                if not np.array_equal(read_png(os.path.join(dirs["out"], n)),
+                                      pred_to_png(pred[j])):
+                    wrong.append(n)
+        check(not wrong, f"serve_dir outputs differ from the eager predictions: {wrong}")
+        emit({"phase": "export-serve", "step": "serve_dir", "frames": len(names), "batch": B,
+              "seconds": serve_dir_s, "outputs_equal_eager": len(names) - len(wrong)})
+
+        if cuda:  # the trace and the dispatch cost read the card's kernels
+            _trace_and_dispatch(torch, keep["module"], batches[1], lat_shape, gen0, steps,
+                                n_blk, root)
+        del keep
+        sync()
+        _eval_parity_step(port, torch, dev, flags, ckpt, root, test_tree)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "export-serve", "seconds": time.perf_counter() - t_phase})
+    return per_request["plain"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true", help="build and kernel checks only")
@@ -1095,9 +1473,9 @@ def main() -> int:
         layernorm_fwd_plain,
     )
     from diffusiondepth_tpu_torch.ops.fused_denoiser import (
-        _conv_link_lib, _link_input_plain, conv_link, conv_link_bwd, conv_link_bwd_plain,
-        conv_link_plain, ddim_step, ddim_step_plain, sched_bwd, sched_bwd_plain, sched_step,
-        sched_step_plain,
+        CONV_LINK_BLOCK_PIXELS, _conv_link_lib, _link_input_plain, conv_link, conv_link_bwd,
+        conv_link_bwd_plain, conv_link_plain, ddim_step, ddim_step_plain, sched_bwd,
+        sched_bwd_plain, sched_step, sched_step_plain,
     )
     from diffusiondepth_tpu_torch.ops.window_attention import (
         window_attention, window_attention_bwd, window_attention_bwd_plain,
@@ -1255,7 +1633,8 @@ def main() -> int:
 
     # ---- 3a. K1 conv link, six configurations of the chain at the bs8 eval
     # latent, then at the (4, 176, 453) latent of a training micro-batch
-    k1_bm = _conv_link_lib()[1]  # output pixels per block: one partial each
+    _conv_link_lib()  # checks the library's block against CONV_LINK_BLOCK_PIXELS
+    k1_bm = CONV_LINK_BLOCK_PIXELS  # output pixels per block: one partial each
 
     def k1_chain(bsz, lh, lw, what):
         k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
@@ -2618,6 +2997,10 @@ def main() -> int:
         del model, optimizer, step, batches, batch
         sync()
 
+        # ---- 21. the deployment path: reference checkpoint -> port
+        # checkpoint -> exported artifacts -> batch serving
+        path_launches["export-serve"] = export_serve_phase(port, torch, dev)
+
     # (route, source, TPU kernel, the path whose run counts its launches:
     # the path at whose shapes the kernel phase timed it). K1 and K4 run on
     # several paths; the line holds their serve counts
@@ -2640,7 +3023,8 @@ def main() -> int:
                "layernorm_fwd": ("triton", csrc + "layernorm.py", ln_py + ":52", "layernorm"),
                "layernorm_bwd": ("cuda", csrc + "layernorm_bwd.cu", ln_py + ":67", "layernorm")}
     emit({"kernels": [
-        {"name": k, "route": src[0], "source": src[1], "replaces": src[2], "path": src[3],
+        {"name": k, "route": src[0], "dispatch": "op" if k in OP_KERNELS else "direct",
+         "source": src[1], "replaces": src[2], "path": src[3],
          "launches": path_launches[src[3]][k],
          "launches_by_path": {p: n[k] for p, n in path_launches.items()},
          "max_abs_err": summary[k]["max_abs_err"], "ms": summary[k]["ms"],

@@ -10,12 +10,26 @@ there every kernel wrapper runs its plain PyTorch version. The port imports
 nothing of the JAX package.
 """
 
-from .config import Config
-from .losses import LossComputer
-from .models.diffusion_model import build_model
-from .ops.native import LAUNCHES, reset_launch_counts
-from .training.optim import make_optimizer
-from .training.steps import make_eval_step, make_train_step
+import importlib
 
-__all__ = ["Config", "build_model", "make_eval_step", "make_train_step", "make_optimizer",
-           "LossComputer", "LAUNCHES", "reset_launch_counts"]
+# name -> module; each is imported at first use, so that importing one
+# module of the package (the serving tool imports the operators, the PNG
+# codec and the checkpoint reader) does not build the model code
+_EXPORTS = {
+    "Config": ".config",
+    "LossComputer": ".losses",
+    "build_model": ".models.diffusion_model",
+    "LAUNCHES": ".ops.native",
+    "reset_launch_counts": ".ops.native",
+    "make_optimizer": ".training.optim",
+    "make_eval_step": ".training.steps",
+    "make_train_step": ".training.steps",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name], __name__), name)

@@ -75,6 +75,22 @@ def shifted_window_mask(h_pad: int, w_pad: int, window: int, shift: int) -> np.n
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def shifted_window_mask_on(h_pad: int, w_pad: int, window: int, shift: int,
+                           device) -> torch.Tensor:
+    """``shifted_window_mask`` computed with torch on ``device``: the same
+    values. An exported program computes it on the card at each call
+    instead of copying a host constant there (a copy waits for the stream)."""
+    def region(n):  # 0, 1, 2 over the three bands of shifted_window_mask's slices
+        i = torch.arange(n, device=device)
+        return (i >= n - window).int() + (i >= n - shift).int()
+
+    img = region(h_pad)[:, None] * 3 + region(w_pad)[None, :]
+    win = img.reshape(h_pad // window, window, w_pad // window, window).permute(0, 2, 1, 3)
+    win = win.reshape(-1, window * window)
+    diff = win[:, None, :] - win[:, :, None]
+    return torch.where(diff != 0, -100.0, 0.0).to(torch.float32)
+
+
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, nW, N, C)."""
     b, h, w, c = x.shape
@@ -166,11 +182,17 @@ class SwinBlock(nn.Module):
         self._masks: Dict[Tuple, torch.Tensor] = {}
 
     def _mask(self, h_pad: int, w_pad: int, device: torch.device) -> torch.Tensor:
+        """The shift mask, made on ``device`` and cached by size and device.
+        While ``torch.export`` traces, it is made anew and not cached: it is
+        a fake tensor there, which a later eager call must not find, and the
+        program computes it on the device."""
         key = (h_pad, w_pad, str(device))
-        if key not in self._masks:
-            self._masks[key] = torch.from_numpy(shifted_window_mask(
-                h_pad, w_pad, self.window_size, self.shift)).to(device)
-        return self._masks[key]
+        if key in self._masks:
+            return self._masks[key]
+        mask = shifted_window_mask_on(h_pad, w_pad, self.window_size, self.shift, device)
+        if not torch.compiler.is_compiling():
+            self._masks[key] = mask
+        return mask
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep``: (2, B) bool drop-path masks of the attention and FFN

@@ -76,9 +76,10 @@ class Diffusion_DCbase_Model(nn.Module):
                                init_latent=init_latent, generator=generator)
 
 
-def build_model(cfg, device: Union[str, torch.device, None] = None) -> nn.Module:
-    """The model of ``cfg`` with weights drawn from ``cfg.seed``, on the
-    card unless ``device="cpu"``; in eval mode. ``Diffusion_DCbase_``:
+def construct_model(cfg) -> nn.Module:
+    """The model of ``cfg`` as ``build_model`` makes it, with weights drawn
+    from the global generator on the current default device; build_model
+    seeds it. ``Diffusion_DCbase_``:
     ``cfg.use_pallas``, ``cfg.fused_window_attention`` and
     ``cfg.remat_backbone`` choose the Swin backbone's attention route and
     block rematerialisation; ``cfg.fused_denoiser`` lets the denoiser take
@@ -86,42 +87,42 @@ def build_model(cfg, device: Union[str, torch.device, None] = None) -> nn.Module
     same with the X4 depth transform. ``NLSPN``: ``NLSPNModel`` with
     ``cfg.network``, the affinity options and ``cfg.prop_stencil_radius``.
     ``--opt_level`` O1-O3 compute in bf16."""
-    dev = resolve_device(device)
     dtype = cfg.compute_dtype if cfg.dtype == "bfloat16" else None
     if cfg.model_name == "NLSPN":
-        def make():
-            return NLSPNModel(cfg, dtype=dtype)
-    elif cfg.model_name in ("Diffusion_DCbase_", "Diffusion_DCx4base_"):
-        if cfg.backbone_module not in _DEFAULT_HEAD:
-            raise NotImplementedError(
-                f"backbone_module {cfg.backbone_module!r} is not ported; "
-                f"ported: {sorted(_DEFAULT_HEAD)}")
-        head = cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module]
-        hic = cfg.head_in_channels
-        dt_cfg = X4_DEPTH_TRANSFORM if cfg.model_name == "Diffusion_DCx4base_" else None
-        if isinstance(hic, str):
-            hic = tuple(int(c) for c in hic.split(","))
-
-        def make():
-            return Diffusion_DCbase_Model(
-                backbone_name=cfg.backbone_name,
-                backbone_module=cfg.backbone_module,
-                head_name=head,
-                inference_steps=cfg.inference_steps,
-                num_train_timesteps=cfg.num_train_timesteps,
-                timestep_schedule=cfg.timestep_schedule,
-                head_in_channels=hic,
-                use_pallas=cfg.use_pallas and cfg.backbone_module == "swin",
-                fused_window_attention=cfg.fused_window_attention,
-                remat_backbone=cfg.remat_backbone,
-                use_fused_denoiser=cfg.fused_denoiser,
-                depth_transform_cfg=dt_cfg,
-                dtype=dtype,
-            )
-    else:
+        return NLSPNModel(cfg, dtype=dtype)
+    if cfg.model_name not in ("Diffusion_DCbase_", "Diffusion_DCx4base_"):
         raise NotImplementedError(
             f"model_name {cfg.model_name!r} is not ported yet (ROADMAP Queue 1)")
+    if cfg.backbone_module not in _DEFAULT_HEAD:
+        raise NotImplementedError(
+            f"backbone_module {cfg.backbone_module!r} is not ported; "
+            f"ported: {sorted(_DEFAULT_HEAD)}")
+    hic = cfg.head_in_channels
+    if isinstance(hic, str):
+        hic = tuple(int(c) for c in hic.split(","))
+    return Diffusion_DCbase_Model(
+        backbone_name=cfg.backbone_name,
+        backbone_module=cfg.backbone_module,
+        head_name=cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module],
+        inference_steps=cfg.inference_steps,
+        num_train_timesteps=cfg.num_train_timesteps,
+        timestep_schedule=cfg.timestep_schedule,
+        head_in_channels=hic,
+        use_pallas=cfg.use_pallas and cfg.backbone_module == "swin",
+        fused_window_attention=cfg.fused_window_attention,
+        remat_backbone=cfg.remat_backbone,
+        use_fused_denoiser=cfg.fused_denoiser,
+        depth_transform_cfg=(X4_DEPTH_TRANSFORM if cfg.model_name == "Diffusion_DCx4base_"
+                             else None),
+        dtype=dtype,
+    )
+
+
+def build_model(cfg, device: Union[str, torch.device, None] = None) -> nn.Module:
+    """The model of ``cfg`` (``construct_model``) with weights drawn from
+    ``cfg.seed``, on the card unless ``device="cpu"``; in eval mode."""
+    dev = resolve_device(device)
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), dev:
         torch.manual_seed(cfg.seed)
-        model = make()
+        model = construct_model(cfg)
     return model.eval()

@@ -89,8 +89,13 @@ class ScheduledCNNRefine(nn.Module):
         return resize_bilinear(cond, tuple(latent_hw), align_corners=True)
 
     def time_embed(self, t) -> torch.Tensor:
+        """The embedding rows of timestep(s) ``t``. A gather, not ``w[t]``:
+        indexing with a 0-d tensor reads its value on the host (a sync per
+        step on the card, a data-dependent size under ``torch.export``)."""
         w = self.time_embedding.weight
-        te = w[torch.as_tensor(t, device=w.device)]
+        idx = torch.as_tensor(t, device=w.device)
+        te = w.index_select(0, idx.reshape(-1))
+        te = te[0] if idx.ndim == 0 else te
         return te.to(self.dtype) if self.dtype is not None else te
 
     def chain_flat(self) -> List[torch.Tensor]:

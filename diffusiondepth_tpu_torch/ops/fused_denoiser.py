@@ -29,7 +29,11 @@ Training:
 
 Every wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version (``*_plain``) for a CPU tensor; it raises when grad mode is
-on and an input requires grad (``native.no_autograd``). Layouts are
+on and an input requires grad (``native.no_autograd``). ``conv_link`` and
+``ddim_step`` do so through ``torch.library`` operators (``ops/library.py``,
+whose CUDA implementations are ``conv_link_cuda`` and ``ddim_step_cuda``),
+so that ``torch.export`` can trace the eval path; the training Functions
+call ``conv_link_direct``, which skips the operator's dispatch. Layouts are
 unpadded NHWC.
 """
 
@@ -100,12 +104,29 @@ def conv_link_plain(x, w, bias, aeff=None, beff=None, relu=False, add=None,
 
 @functools.lru_cache(maxsize=None)
 def _conv_link_lib():
-    """(launch function, output pixels per block) of csrc/conv_link.cu."""
+    """The launch function of csrc/conv_link.cu; raises if the library's
+    block differs from ``CONV_LINK_BLOCK_PIXELS``."""
     lib = native.load("conv_link")
+    if lib.conv_link_block_pixels() != CONV_LINK_BLOCK_PIXELS:
+        raise RuntimeError(f"conv_link.cu blocks {lib.conv_link_block_pixels()} pixels, "
+                           f"CONV_LINK_BLOCK_PIXELS is {CONV_LINK_BLOCK_PIXELS}")
     fn = lib.conv_link_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, lib.conv_link_block_pixels()
+    return fn
+
+
+# the output pixels per block of csrc/conv_link.cu (``Conv3x3::BM``): one
+# (sum y, sum y^2) partial each. The op's fake rule sizes the partials with
+# it; ``_conv_link_lib`` checks it against the built library.
+CONV_LINK_BLOCK_PIXELS = 128
+
+
+def conv_link_partials_shape(B: int, H: int, W: int, cout: int, device_type: str):
+    """Shape of K1's partials: one per block of ``CONV_LINK_BLOCK_PIXELS``
+    pixels of an image row on the card, one per image from the plain version."""
+    n = H * -(-W // CONV_LINK_BLOCK_PIXELS) if device_type == "cuda" else 1
+    return (B, n, 2, cout)
 
 
 def conv_link(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -120,10 +141,30 @@ def conv_link(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     x, add: (B, H, W, Cin) bf16; w: (3, 3, Cin, Cout) bf16; bias: (Cout,)
     f32; aeff, beff: (B, Cin) f32; te: (B, Cin) bf16. Returns y (B, H, W,
     Cout) bf16 and, with ``stats``, (B, n_blocks, 2, Cout) f32 partial sums.
+    Runs the operator ``diffusiondepth::conv_link`` (``ops/library.py``):
+    the kernel on the card, the plain version on the CPU, a shape rule
+    under ``torch.export``.
     """
     native.no_autograd("conv_link", x, w, bias, aeff, beff, add, te)
+    native.check_device(x)
+    y, partials = torch.ops.diffusiondepth.conv_link.default(
+        x, w, bias, aeff, beff, relu, add, te, stats)
+    return y, partials if stats else None
+
+
+def conv_link_direct(x, w, bias, aeff=None, beff=None, relu=False, add=None, te=None,
+                     stats=False):
+    """``conv_link`` without the operator's dispatch: the plain version for
+    a CPU tensor, the launch otherwise. The training Functions take it (a
+    step makes hundreds of links)."""
     if x.device.type == "cpu":
         return conv_link_plain(x, w, bias, aeff, beff, relu, add, te, stats)
+    return conv_link_cuda(x, w, bias, aeff, beff, relu, add, te, stats)
+
+
+def conv_link_cuda(x, w, bias, aeff, beff, relu, add, te, stats):
+    """K1's launch on CUDA tensors (the operator's CUDA implementation):
+    checks, output allocation, one launch, one count."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     B, H, W, cin = x.shape
@@ -142,11 +183,10 @@ def conv_link(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         expect.append((te, (B, cin), BF16))
     native.check_tensors("conv_link", expect, x.device)
     native.check_aligned("conv_link", x, w)
-    lib_fn, bm = _conv_link_lib()
-    n_blocks = H * ((W + bm - 1) // bm)
+    lib_fn = _conv_link_lib()
     y = torch.empty((B, H, W, cout), dtype=BF16, device=x.device)
-    partials = (torch.empty((B, n_blocks, 2, cout), dtype=torch.float32,
-                            device=x.device) if stats else None)
+    partials = (torch.empty(conv_link_partials_shape(B, H, W, cout, "cuda"),
+                            dtype=torch.float32, device=x.device) if stats else None)
     flags = ((_F_GN if aeff is not None else 0) | (_F_RELU if relu else 0)
              | (_F_ADD if add is not None else 0) | (_F_TE if te is not None else 0)
              | (_F_STATS if stats else 0))
@@ -181,8 +221,8 @@ def gn_affine_from_partials(ps: torch.Tensor, scale: torch.Tensor,
     return aeff.contiguous(), beff.contiguous(), invc.contiguous(), meanc.contiguous()
 
 
-def chain_forward(p: Params, x: torch.Tensor, cond: torch.Tensor, te: torch.Tensor
-                  ) -> Dict[str, object]:
+def chain_forward(p: Params, x: torch.Tensor, cond: torch.Tensor, te: torch.Tensor,
+                  link=conv_link) -> Dict[str, object]:
     """The six links of ScheduledCNNRefine(fuse='upsample_add'), keeping
     the raw conv outputs u1..u6 and the GroupNorm statistics g0..g3
     (aeff, beff, inv, mean) that the backward needs.
@@ -190,21 +230,23 @@ def chain_forward(p: Params, x: torch.Tensor, cond: torch.Tensor, te: torch.Tens
     p: ``{ne0, ne1, fa, fb, pr0, pr1: (w (3,3,Cin,Cout) bf16, bias f32),
     gn0..gn3: (scale f32, bias f32)}``; x (B, H, W, 16) bf16 noisy latent;
     cond (B, H, W, C) bf16 condition; te (B, C) bf16 timestep embedding.
+    ``link`` runs each link: ``conv_link`` (the operator) or
+    ``conv_link_direct``.
     """
     B, H, W, _ = x.shape
 
     def affine(ps, gn):
         return gn_affine_from_partials(ps, *gn, 4, H * W * (ps.shape[-1] // 4))
 
-    u1, ps1 = conv_link(x, *p["ne0"], stats=True)
+    u1, ps1 = link(x, *p["ne0"], stats=True)
     g0 = affine(ps1, p["gn0"])
-    u2, ps2 = conv_link(u1, *p["ne1"], aeff=g0[0], beff=g0[1], relu=True, stats=True)
+    u2, ps2 = link(u1, *p["ne1"], aeff=g0[0], beff=g0[1], relu=True, stats=True)
     g1 = affine(ps2, p["gn1"])
-    u3, _ = conv_link(u2, *p["fa"], aeff=g1[0], beff=g1[1], relu=True, add=cond, te=te)
-    u4, _ = conv_link(u3, *p["fb"])
-    u5, ps5 = conv_link(u4, *p["pr0"], stats=True)
+    u3, _ = link(u2, *p["fa"], aeff=g1[0], beff=g1[1], relu=True, add=cond, te=te)
+    u4, _ = link(u3, *p["fb"])
+    u5, ps5 = link(u4, *p["pr0"], stats=True)
     g2 = affine(ps5, p["gn2"])
-    u6, ps6 = conv_link(u5, *p["pr1"], aeff=g2[0], beff=g2[1], relu=True, stats=True)
+    u6, ps6 = link(u5, *p["pr1"], aeff=g2[0], beff=g2[1], relu=True, stats=True)
     g3 = affine(ps6, p["gn3"])
     return dict(x=x, cond=cond, te=te, u1=u1, u2=u2, u3=u3, u4=u4, u5=u5, u6=u6,
                 g0=g0, g1=g1, g2=g2, g3=g3)
@@ -252,10 +294,15 @@ def ddim_step(u6: torch.Tensor, aeff: torch.Tensor, beff: torch.Tensor,
     """x' = DDIM update of the f32 latent x with eps = relu(gn3(u6)).
 
     u6 (B, H, W, C) bf16; aeff, beff (B, C) f32; x (B, H, W, C) f32;
-    sched (4,) f32 on x's device."""
+    sched (4,) f32 on x's device. Runs the operator
+    ``diffusiondepth::ddim_step`` (``ops/library.py``)."""
     native.no_autograd("ddim_step", u6, aeff, beff, x)
-    if x.device.type == "cpu":
-        return ddim_step_plain(u6, aeff, beff, x, sched)
+    native.check_device(x)
+    return torch.ops.diffusiondepth.ddim_step.default(u6, aeff, beff, x, sched)
+
+
+def ddim_step_cuda(u6, aeff, beff, x, sched):
+    """K3's launch on CUDA tensors (the operator's CUDA implementation)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_step("ddim_step", u6, aeff, beff, x, sched)
@@ -591,7 +638,7 @@ class FusedDenoiser(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, lat, cond, te, *flat):
-        it = chain_forward(chain_params_from_flat(flat), lat, cond, te)
+        it = chain_forward(chain_params_from_flat(flat), lat, cond, te, conv_link_direct)
         ctx.save_for_backward(lat, cond, te, *flat)
         return finish_eps(it["u6"], *it["g3"][:2])
 
@@ -599,7 +646,7 @@ class FusedDenoiser(torch.autograd.Function):
     def backward(ctx, ct):
         lat, cond, te, *flat = ctx.saved_tensors
         p = chain_params_from_flat(flat)
-        it = chain_forward(p, lat, cond, te)
+        it = chain_forward(p, lat, cond, te, conv_link_direct)
         t6, coefs6, dgn3 = _vlink7(it, p["gn3"][0], ct)
         grads, dlat, dcond = chain_bwd_links(p, it, t6, coefs6, dgn3)
         return (dlat, dcond, _dte(dcond, te), *_flat_grads(grads))
@@ -619,7 +666,7 @@ class FusedSamplerStep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_f32, x_bf16, cond, te, sched, *flat):
         p = chain_params_from_flat(flat)
-        it = chain_forward(p, x_bf16, cond, te)
+        it = chain_forward(p, x_bf16, cond, te, conv_link_direct)
         ctx.save_for_backward(x_bf16, cond, te, sched, *flat)
         return sched_step(it["u6"], it["g3"][0], it["g3"][1], x_f32, sched)
 
@@ -627,7 +674,7 @@ class FusedSamplerStep(torch.autograd.Function):
     def backward(ctx, dxp, dxpb):
         x_bf16, cond, te, sched, *flat = ctx.saved_tensors
         p = chain_params_from_flat(flat)
-        it = chain_forward(p, x_bf16, cond, te)
+        it = chain_forward(p, x_bf16, cond, te, conv_link_direct)
         if dxp is None:
             dxp = torch.zeros(x_bf16.shape, dtype=torch.float32, device=x_bf16.device)
         g3 = it["g3"]

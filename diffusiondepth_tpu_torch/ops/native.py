@@ -140,6 +140,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def check_device(t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on the CPU (the plain versions) or on a CUDA
+    device (the kernels): a wrapper never runs a plain version elsewhere."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+
+
 def check_tensors(kernel: str, expect, device) -> None:
     """Raise unless each (tensor, shape, dtype) of ``expect`` has that shape
     and type and lies contiguous on ``device``."""

@@ -17,6 +17,11 @@ f32 summation order. ``WindowAttentionQKV`` is the
 the CUDA kernel ``csrc/window_attention_split.cu`` (K8) on the card, its
 plain version on the CPU. The Swin blocks take it with ``use_pallas`` at
 eval.
+
+``window_attention`` and ``window_attention_split`` run through
+``torch.library`` operators (``ops/library.py``, CUDA implementations
+``window_attention_cuda`` and ``window_attention_split_cuda``), so that
+``torch.export`` can trace the Swin blocks.
 """
 
 from __future__ import annotations
@@ -126,11 +131,17 @@ def _launch_fn():
 def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
                      mask: Optional[torch.Tensor], scale: float,
                      num_heads: int) -> torch.Tensor:
-    """qkv (B, nW, N, 3C) -> (B, nW, N, C): the CUDA kernel on the card,
-    the plain version for a CPU tensor."""
+    """qkv (B, nW, N, 3C) -> (B, nW, N, C) through the operator
+    ``diffusiondepth::window_attention`` (``ops/library.py``): the CUDA
+    kernel on the card, the plain version for a CPU tensor."""
     native.no_autograd("window_attention", qkv, bias, mask)
-    if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, bias, mask, scale, num_heads)
+    native.check_device(qkv)
+    return torch.ops.diffusiondepth.window_attention.default(qkv, bias, mask, float(scale),
+                                                             int(num_heads))
+
+
+def window_attention_cuda(qkv, bias, mask, scale, num_heads):
+    """K4's launch on CUDA tensors (the operator's CUDA implementation)."""
     _check(qkv, bias, mask, num_heads)
     b, nw, n, c3 = qkv.shape
     c = c3 // 3
@@ -314,12 +325,19 @@ def window_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, mask: Optional[torch.Tensor],
                            scale: float) -> torch.Tensor:
     """softmax(round(q * scale) k^T + bias [+ mask]) v on q, k, v (B, nW, H,
-    N, D), each read with its own strides (unit stride along D): the CUDA
-    kernel on the card, the plain version for a CPU tensor. Returns a
-    contiguous (B, nW, H, N, D) tensor in the input type."""
+    N, D), each read with its own strides (unit stride along D), through
+    the operator ``diffusiondepth::window_attention_split``
+    (``ops/library.py``): the CUDA kernel on the card, the plain version
+    for a CPU tensor. Returns a contiguous (B, nW, H, N, D) tensor in the
+    input type."""
     native.no_autograd("window_attention_split", q, k, v, bias, mask)
-    if q.device.type == "cpu":
-        return window_attention_split_plain(q, k, v, bias, mask, scale)
+    native.check_device(q)
+    return torch.ops.diffusiondepth.window_attention_split.default(q, k, v, bias, mask,
+                                                                   float(scale))
+
+
+def window_attention_split_cuda(q, k, v, bias, mask, scale):
+    """K8's launch on CUDA tensors (the operator's CUDA implementation)."""
     _check_split(q, k, v, bias, mask)
     b, nw, h, n, d = q.shape
     out = torch.empty((b, nw, h, n, d), dtype=q.dtype, device=q.device)

@@ -2,6 +2,7 @@
 its entry points never fall back to the CPU on their own, and its kernel
 wrappers take the plain versions only for CPU tensors."""
 
+import json
 import re
 import subprocess
 import sys
@@ -128,6 +129,51 @@ def test_data_layer_runs_without_h5py_cv2_or_pil():
     out = subprocess.run([sys.executable, "-c", _DATA_LAYER_WITHOUT_LIBRARIES], cwd=REPO,
                          check=True, capture_output=True, text=True).stdout
     assert out.strip() == "[(32, 48, 1), (228, 304, 1)] []", out
+
+
+
+# the deployment and accounting tools, each with a --help
+_TOOLS = ("convert_checkpoint", "export_model", "serve", "eval_parity", "flops",
+          "analyze_trace", "prepare_kitti", "serve_ab")
+
+_TOOLS_WITHOUT_JAX = """
+import contextlib, importlib.abc, io, json, runpy, sys
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "diffusiondepth_tpu", "PIL", "h5py",
+                                  "cv2"):
+            raise ImportError("blocked: " + name)
+
+
+sys.meta_path.insert(0, Block())
+import diffusiondepth_tpu_torch.ops.library  # noqa: F401
+import diffusiondepth_tpu_torch.utils.convert_torch_checkpoint  # noqa: F401
+
+out = {}
+for tool in sys.argv[1:]:
+    sys.argv = [tool, "--help"]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        try:
+            runpy.run_module("diffusiondepth_tpu_torch.tools." + tool, run_name="__main__")
+            code = None
+        except SystemExit as e:
+            code = e.code
+    out[tool] = [code, text.getvalue().startswith("usage:")]
+print(json.dumps(out))
+"""
+
+
+def test_tools_help_without_jax():
+    """With jax, flax, the JAX package, PIL, h5py and cv2 blocked from
+    import, the operator registrations and the reference-checkpoint loader
+    import, and ``python -m diffusiondepth_tpu_torch.tools.<tool> --help``
+    prints its usage and exits 0 for every deployment and accounting tool."""
+    out = subprocess.run([sys.executable, "-c", _TOOLS_WITHOUT_JAX, *_TOOLS], cwd=REPO,
+                         check=True, capture_output=True, text=True).stdout
+    assert json.loads(out) == {t: [0, True] for t in _TOOLS}
 
 
 _FORBIDDEN = re.compile(

@@ -469,3 +469,81 @@ def test_x4_and_concat_launch_counts(dev, model_name, head):
                     conv_link_bwd=6 * (steps + 1), sched_bwd=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(loss))
+
+
+def _op_cases(dev):
+    """(name, operator, CUDA implementation, args) of the four operators
+    at small ragged shapes on the card."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+
+    def r(*s, dtype=torch.float32, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dtype)
+
+    x, add = r(2, 3, 130, 64, dtype=bf), r(2, 3, 130, 64, dtype=bf)
+    w = r(3, 3, 64, 64, dtype=bf, scale=0.05)
+    a, o = 1 + r(2, 64, scale=0.1), r(2, 64, scale=0.1)
+    te = r(2, 64, dtype=bf, scale=0.1)
+    u6, lat = r(2, 5, 7, 16, dtype=bf), r(2, 5, 7, 16)
+    sched = torch.tensor([0.3, 0.954, 0.5, 0.866], device=dev)
+    qkv, bias = r(2, 3, 49, 3 * 64, dtype=bf), r(2, 49, 49)
+    mask = r(3, 49, 49)
+    q, k, v = (r(2, 3, 2, 49, 32, dtype=bf) for _ in range(3))
+    ops = torch.ops.diffusiondepth
+    return [
+        ("conv_link", ops.conv_link.default, fd.conv_link_cuda,
+         (x, w, r(64), a, o, True, add, te, True)),
+        ("conv_link", ops.conv_link.default, fd.conv_link_cuda,
+         (x, w, r(64), None, None, False, None, None, False)),
+        ("ddim_step", ops.ddim_step.default, fd.ddim_step_cuda,
+         (u6, a[:, :16].contiguous(), o[:, :16].contiguous(), lat, sched)),
+        ("window_attention", ops.window_attention.default, wa.window_attention_cuda,
+         (qkv, bias, mask, 0.17, 2)),
+        ("window_attention_split", ops.window_attention_split.default,
+         wa.window_attention_split_cuda, (q, k, v, bias, mask, 0.17)),
+    ]
+
+
+def test_ops_match_direct_launch(dev):
+    """Each operator on the card equals its CUDA implementation called
+    directly, bit for bit, and counts one launch per call."""
+    for name, op, direct, args in _op_cases(dev):
+        n0 = LAUNCHES[name]
+        got = op(*args)
+        assert LAUNCHES[name] == n0 + 1, name
+        want = direct(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a_, b_ in zip(got, want):
+            if b_ is None:  # conv_link without stats: the operator's empty partials
+                assert a_.numel() == 0, name
+            else:
+                assert torch.equal(a_, b_), name
+
+
+def test_exported_flagship_matches_eager(dev, tmp_path):
+    """swin_micro under the flagship head (bf16, 2 steps, 64x96): the
+    exported predict step, saved and loaded, equals the eager step bit for
+    bit on the card, with the eager path's K1, K3 and K4 launches."""
+    from diffusiondepth_tpu_torch.tools import export_model as em
+
+    cfg = port.Config(model_name="Diffusion_DCbase_", backbone_module="swin",
+                      backbone_name="swin_micro", inference_steps=2, opt_level="O1",
+                      head_in_channels="32,64,128,256").finalize()
+    model = port.build_model(cfg)
+    spec = em.serving_batch_spec(2, 64, 96)
+    path = str(tmp_path / "micro.pt2")
+    em.save_exported(em.export_predict(model, spec), path)
+    module = em.load_exported(path).module()
+    g = torch.Generator(device=dev).manual_seed(3)
+    batch = {k: torch.rand(s, generator=g, device=dev) * 5 for k, s in spec.items()}
+    lat = torch.randn(em.latent_shape(model, 2, 64, 96), generator=g, device=dev)
+    with torch.no_grad():
+        want = em.make_predict_fn(model)(batch, lat)
+        port.reset_launch_counts()
+        got = module(batch, lat)
+        torch.cuda.synchronize()
+    assert LAUNCHES["conv_link"] == 12 and LAUNCHES["ddim_step"] == 2
+    assert LAUNCHES["window_attention"] == 5
+    assert torch.equal(got, want)
