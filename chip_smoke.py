@@ -69,6 +69,29 @@ Phases, one JSON line each:
              kernel; then the device time of one step split into backbone
              forward, head forward, sampler, ddim_loss + decode, backward
              and optimizer;
+   reference (hahi-att) - swin_micro + DDIMDepthEstimate_Swin_ADDHAHI
+             built with hahi_self_att and hahi_cross_att (random MSDA
+             offset and weight projections), 2 x 64x96, 4 steps from a fixed
+             latent, f32 with TF32 off: pred card against CPU (1e-3), one
+             training step's loss and per-leaf gradients (2e-2); and
+             PureMSDEnTransformer and PixelTransformerDecoder (classify on
+             and off) card against CPU (1e-4);
+   serve-hahi-att - the serve configuration with both attentions on
+             (embed 512, 8 heads, 8 points, 256 encoding features): 3
+             requests after one warm-up, exactly 120 K1, 20 K3 and 24 K4
+             per request, latency, frames/s and peak memory beside phase 5's
+             latency; the device time of one request by part, the neck split
+             into its conv path, self-attention and cross-attention, and the
+             attention's share; the sampler's top kernels; the MSDA core
+             alone at the serve shapes in bf16 (the cross-attention's 26752
+             level-0 queries and the self-attention's 8778 fused tokens per
+             image): time, bound, top kernels;
+   train-hahi-att - the training recipe of phase 6 with both attentions
+             on: one warm-up and 2 timed steps, finite losses and gradients,
+             non-zero gradients in level_embed, each MSDA's four projections
+             and reference_points_fc, phase 6's launch counts, peak memory and
+             the device time of one step by part (the attentions' forward
+             split out);
 7. layernorm - LayerNorm(dtype=bf16) forward and backward through
              LayerNormBF16 at the largest Swin-L norm, card against CPU,
              with exactly one K9 and one K10 launch;
@@ -188,6 +211,7 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -543,6 +567,43 @@ def randomize_offset_conv(torch, model, seed, offset_scale):
     with torch.no_grad():
         conv.weight.copy_(w)
         conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=g))
+
+
+def attention_model(port, torch, cfg, device=None):
+    """``port.build_model(cfg, device)`` with its head rebuilt with both of
+    HAHI's deformable attentions on (``hahi_self_att``,
+    ``hahi_cross_att``: no Config field reaches them, as in JAX), the
+    head's weights drawn from ``cfg.seed + 1``; in eval mode."""
+    model = port.build_model(cfg, device=device)
+    head = model.depth_head
+    dev = next(model.parameters()).device
+    hic = cfg.head_in_channels
+    if isinstance(hic, str):
+        hic = tuple(int(c) for c in hic.split(","))
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), dev:
+        torch.manual_seed(cfg.seed + 1)
+        model.depth_head = type(head)(
+            in_channels=hic, inference_steps=cfg.inference_steps,
+            num_train_timesteps=cfg.num_train_timesteps, timestep_schedule=cfg.timestep_schedule,
+            use_fused_denoiser=cfg.fused_denoiser, dtype=head.dtype, hahi_self_att=True,
+            hahi_cross_att=True)
+    return model.eval()
+
+
+def randomize_msda(torch, model, seed, offset_scale=3.0):
+    """Random ``sampling_offsets`` and ``attention_weights`` weights (zero
+    at init, where only the bias path would be held) in every MSDA of
+    ``model``: N(0, 1 / fan-in), the offsets scaled by ``offset_scale`` so
+    that some points leave the maps; drawn from ``seed``."""
+    from diffusiondepth_tpu_torch.ops.msda import MultiScaleDeformableAttention
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MultiScaleDeformableAttention):
+                for lin, scale in ((m.sampling_offsets, offset_scale), (m.attention_weights, 1.0)):
+                    w = torch.randn(lin.weight.shape, generator=g) / lin.weight.shape[1] ** 0.5
+                    lin.weight.copy_(scale * w)
 
 
 def nlspn_phases(port, torch, dev) -> dict:
@@ -1467,7 +1528,11 @@ def main() -> int:
     from diffusiondepth_tpu_torch.losses import get_loss_names
     from diffusiondepth_tpu_torch.models.backbones.swin import shifted_window_mask
     from diffusiondepth_tpu_torch.models.common import LayerNorm
+    from diffusiondepth_tpu_torch.models.necks.transformer import (
+        PixelTransformerDecoder, PureMSDEnTransformer,
+    )
     from diffusiondepth_tpu_torch.ops import native
+    from diffusiondepth_tpu_torch.ops.msda import MultiScaleDeformableAttention, ms_deform_attn
     from diffusiondepth_tpu_torch.ops.layernorm import (
         layernorm_bwd, layernorm_bwd_plain, layernorm_bwd_plan, layernorm_fwd,
         layernorm_fwd_plain,
@@ -2272,26 +2337,30 @@ def main() -> int:
         # way (0.25)
         train_tols = (("O0", 2e-2), ("O1", 0.25))
 
-        def micro_train(cfg_of, opt, tol, calibrate=False, lat=lat0, nz=noise):
-            """One training step of the micro model ``cfg_of(opt)`` on the card
-            and on the CPU from the same weights, starting latent ``lat`` and
-            DDIM noise ``nz``: loss and per-leaf gradient distances, checked
+        def micro_train(cfg_of, opt, tol, calibrate=False, lat=lat0, nz=noise,
+                        build=port.build_model):
+            """One training step of the micro model ``build(cfg_of(opt))`` on
+            the card and on the CPU from the same weights, starting latent
+            ``lat`` and DDIM noise ``nz``, drop-path and the attentions'
+            dropout off: loss and per-leaf gradient distances, checked
             against ``tol``. ``calibrate``: a
             leaf may also sit within twice the distance between the CPU's
             gradient and an f32 CPU step's from the same weights (how far
             the compute type alone moves that leaf)."""
-            gpu_m = port.build_model(cfg_of(opt))
+            gpu_m = build(cfg_of(opt))
             runs = [(gpu_m, dev)]
             for o in (opt, "O0") if calibrate else (opt,):
-                runs.append((port.build_model(cfg_of(o), device="cpu"), torch.device("cpu")))
+                runs.append((build(cfg_of(o), device="cpu"), torch.device("cpu")))
                 runs[-1][0].load_state_dict(gpu_m.state_dict())
             lc = port.LossComputer(cfg_of(opt))
             grads, losses = [], []
             for m, d in runs:
                 m.train()
-                for mod in m.modules():  # drop-path off
+                for mod in m.modules():  # drop-path and dropout off
                     if hasattr(mod, "drop_path_rate"):
                         mod.drop_path_rate = 0.0
+                    if isinstance(mod, MultiScaleDeformableAttention):
+                        mod.dropout = 0.0
                 head = m.depth_head
                 head._ddim_loss = functools.partial(head._ddim_loss, noise=nz.to(d),
                                                     timesteps=ts.to(d))
@@ -2605,8 +2674,8 @@ def main() -> int:
                 def head_fwd():
                     gt_t = head.depth_transform.t(mb["gt"])
                     return gt_t, head.model.upsample_condition(
-                        head.fpn_condition(head.hahineck(fp) if head.use_hahi else fp),
-                        gt_t.shape[1:3])
+                        head.fpn_condition(head.hahineck(fp, generator=g) if head.use_hahi
+                                           else fp), gt_t.shape[1:3])
 
                 gt_t, cond = tpart("head_fwd_ms", head_fwd)
                 lat = tpart("sampler_ms", lambda: head._sample(
@@ -2628,6 +2697,282 @@ def main() -> int:
 
         emit({"phase": "train_breakdown", "step": "global batch 8 = 2 x 4, 352x906, 20 steps",
               **train_parts(model, optimizer, lc, batches[0], tgen)})
+        del model, optimizer, step, batches, batch
+        sync()
+
+        # ---- 6b. HAHI's deformable attentions on: swin_micro + the flagship
+        # head rebuilt with both attentions (4 steps, f32, TF32 off), card
+        # against CPU on pred and one training step; the encoder and the
+        # pixel decoder at micro size
+        t_phase = time.perf_counter()
+        cpu = torch.device("cpu")
+
+        def att_cfg(opt):
+            return dataclasses.replace(micro_cfg(opt), inference_steps=4)
+
+        def att_build(cfg_, device=None):
+            m = attention_model(port, torch, cfg_, device)
+            randomize_msda(torch, m, 11)
+            return m
+
+        gm = att_build(att_cfg("O0"))
+        cm = att_build(att_cfg("O0"), "cpu")
+        cm.load_state_dict(gm.state_dict())
+        lat4 = torch.randn(2, 32, 48, 16, generator=torch.Generator().manual_seed(5))
+        preds = []
+        for m, d in ((gm, dev), (cm, cpu)):
+            pred, met, _ = port.make_eval_step(m)({"rgb": rgb.to(d), "gt": gt.to(d)},
+                                                  init_latent=lat4.to(d))
+            check(bool(torch.isfinite(pred).all()) and bool(torch.isfinite(met).all()),
+                  f"hahi-att micro eval not finite on {d}")
+            preds.append(pred.float().cpu())
+        # the CPU parity test's tolerance against JAX (f32, sums in another order)
+        pred_ok = torch.allclose(preds[0], preds[1], rtol=1e-3, atol=1e-3)
+        pred_err = ((preds[0] - preds[1]).abs().max() / preds[1].abs().max()).item()
+        check(pred_ok, f"hahi-att micro pred: card vs CPU rel err {pred_err}")
+        del gm, cm
+        att_train = micro_train(att_cfg, "O0", train_tols[0][1], build=att_build)
+        # the transformer modules: card against CPU, f32, eval
+        tgen_c = torch.Generator().manual_seed(6)
+        feats = [torch.randn(2, 8 >> i, 12 >> i, 64, generator=tgen_c) for i in range(3)]
+        mems = [torch.randn(2, 4 >> i, 6 >> i, 32, generator=tgen_c) for i in range(2)]
+        maskf = torch.randn(2, 16, 24, 32, generator=tgen_c)
+        tr_err = {}
+        for tname, make, inputs in (
+                ("PureMSDEnTransformer", lambda: PureMSDEnTransformer(
+                    2, 64, 4, pe_num_feats=32, num_levels=3), (feats,)),
+                ("PixelTransformerDecoder classify", lambda: PixelTransformerDecoder(
+                    32, 3, 2, 16, 4, True, 10, 16), (mems, maskf)),
+                ("PixelTransformerDecoder", lambda: PixelTransformerDecoder(
+                    32, 3, 2, 16, 4, False, 10, 16), (mems, maskf))):
+            torch.manual_seed(7)
+            c_mod = make()
+            randomize_msda(torch, c_mod, 8)
+            g_mod = make().to(dev)
+            g_mod.load_state_dict(c_mod.state_dict())
+            with torch.no_grad():
+                outs = [c_mod.eval()(*inputs),
+                        g_mod.eval()(*[[t.to(dev) for t in a] if isinstance(a, list)
+                                       else a.to(dev) for a in inputs])]
+            flat = [[t.float().cpu() for t in o if t is not None] for o in outs]
+            tr_err[tname] = [((a - b_).abs().max() / b_.abs().max()).item()
+                             for a, b_ in zip(flat[1], flat[0])]
+            check(len(flat[0]) == len(flat[1]) and all(e <= 1e-4 for e in tr_err[tname]),
+                  f"{tname}: card vs CPU {tr_err[tname]}")
+        emit({"phase": "reference (hahi-att)", "what": "swin_micro + DDIMDepthEstimate_Swin_"
+              "ADDHAHI with hahi_self_att and hahi_cross_att, 2 x 64x96, 4 steps, fixed latent, "
+              "f32 (TF32 off), card vs CPU; one training step; the encoder and the pixel "
+              "decoder (classify on and off)", "pred_rel_err": pred_err,
+              "pred_tol": {"rtol": 1e-3, "atol": 1e-3}, "train": att_train,
+              "transformer_rel_err": tr_err, "transformer_tol": 1e-4,
+              "seconds": time.perf_counter() - t_phase})
+        sync()
+
+        @contextlib.contextmanager
+        def attention_timers(neck):
+            """CUDA events around each call of the neck's self- and
+            cross-attention while the block runs; the yielded dict reads
+            their device ms once the block has synchronised."""
+            evs = {"self_attention_ms": [], "cross_attention_ms": []}
+
+            def timed(key, fn):
+                def run(*a, **k):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = fn(*a, **k)
+                    end.record()
+                    evs[key].append((start, end))
+                    return out
+                return run
+
+            neck.self_attention = timed("self_attention_ms", neck.self_attention)
+            neck.cross_attention = timed("cross_attention_ms", neck.cross_attention)
+            times = {}
+            try:
+                yield times
+            finally:
+                del neck.self_attention, neck.cross_attention
+                sync()
+                times.update({k: sum(s_.elapsed_time(e_) for s_, e_ in v)
+                              for k, v in evs.items()})
+
+        # ---- 6c. serve the flagship with both attentions on: the serve
+        # configuration and batches of phase 5
+        t_phase = t0 = time.perf_counter()
+        amodel = attention_model(port, torch, cfg)
+        astep = port.make_eval_step(amodel)
+        a_params = sum(p.numel() for p in amodel.parameters())
+        sync()
+        build_s = time.perf_counter() - t0
+        agen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        awarm = request(agen)
+        sync()
+        t0 = time.perf_counter()
+        astep(awarm, generator=agen)
+        sync()
+        warm_s = time.perf_counter() - t0
+        n_att = 3
+        abatches = [request(agen) for _ in range(n_att)]
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        a_expect = {k: 0 for k in port.LAUNCHES}
+        a_expect.update({"conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk})
+        a_ms, a_rows = [], []
+        for batch in abatches:
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            pred, met, _ = astep(batch, generator=agen)
+            sync()
+            a_ms.append(1e3 * (time.perf_counter() - t0))
+            a_launches = dict(port.LAUNCHES)
+            check(a_launches == a_expect, f"serve-hahi-att launch counts {a_launches} != "
+                  f"{a_expect}")
+            check(tuple(pred.shape) == (B, H_IMG, W_IMG, 1) and bool(torch.isfinite(pred).all())
+                  and bool(torch.isfinite(met).all()), "serve-hahi-att: pred or metrics not finite")
+            a_rows.append(met[0].tolist())
+        a_peak = torch.cuda.max_memory_allocated() / 1e9
+        path_launches["serve-hahi-att"] = a_launches
+
+        # one request's device time by part, the neck split into its conv
+        # path, self-attention and cross-attention
+        head, neck = amodel.depth_head, amodel.depth_head.hahineck
+        aparts = {}
+
+        def apart(key, fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            sync()
+            aparts[key] = start.elapsed_time(end)
+            return out
+
+        with torch.no_grad(), attention_timers(neck) as att_ms:
+            fp = apart("backbone_ms", lambda: amodel.depth_backbone(abatches[0]["rgb"]))
+            gt_t = apart("depth_encode_ms", lambda: head.depth_transform.t(abatches[0]["gt"]))
+            nout = apart("neck_ms", lambda: neck(fp, generator=agen))
+            cond = apart("fpn_upsample_ms", lambda: head.model.upsample_condition(
+                head.fpn_condition(nout), gt_t.shape[1:3]))
+            lat = apart("sampler_ms", lambda: head._sample(
+                cond, (B, gt_t.shape[1], gt_t.shape[2], 16), agen)[0])
+            apart("depth_decode_ms", lambda: head.depth_transform.inv_t(lat))
+        request_ms = sum(aparts.values())
+        aparts.update(att_ms)
+        aparts["neck_conv_path_ms"] = (aparts["neck_ms"] - att_ms["self_attention_ms"]
+                                       - att_ms["cross_attention_ms"])
+        aparts["sum_ms"] = request_ms
+        att_share = (att_ms["self_attention_ms"] + att_ms["cross_attention_ms"]) / request_ms
+        with torch.no_grad():
+            sampler_kernels = top_kernels(lambda: head._sample(
+                cond, (B, gt_t.shape[1], gt_t.shape[2], 16), agen))
+        del fp, nout, cond, lat
+
+        # the MSDA core alone at the serve shapes (bf16 on the card): the
+        # cross-attention's 26752 level-0 queries per image and the
+        # self-attention's 8778 fused tokens, over the three fused levels;
+        # bound: each input read once and the output written once, or 9
+        # f32-rate operations per sampled channel (4 corner products, 3
+        # adds, the weight's product and the sum over points)
+        lv = [swin_stage_grid(H_IMG, W_IMG, st) for st in (1, 2, 3)]
+        nv = sum(h_ * w_ for h_, w_ in lv)
+        cg = torch.Generator(device=dev).manual_seed(9)
+        core = {}
+        for cname, nq in (("cross", (H_IMG // 4) * (W_IMG // 4)), ("self", nv)):
+            value = torch.randn(B, nv, 8, 64, generator=cg, device=dev).to(bf)
+            loc = torch.rand(B, nq, 8, 3, 8, 2, generator=cg, device=dev).to(bf)
+            wts = (torch.rand(B, nq, 8, 3, 8, generator=cg, device=dev) / 24).to(bf)
+
+            def core_fn():
+                return ms_deform_attn(value, lv, loc, wts)
+
+            with torch.no_grad():
+                out = core_fn()
+                check(out.dtype == bf and tuple(out.shape) == (B, nq, 512)
+                      and bool(torch.isfinite(out).all()), f"MSDA core {cname}: {out.dtype}")
+                n_pts = B * nq * 8 * 3 * 8
+                nbytes = 2 * (value.numel() + loc.numel() + wts.numel() + out.numel())
+                bms, by = bound(nbytes, 9.0 * n_pts * 64, F32_FLOPS)
+                core[cname] = {"queries": nq, "points": n_pts, "ms": median_ms(core_fn, 5, 2),
+                               "bound_ms": bms, "bound_by": by,
+                               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+                if cname == "cross":
+                    core[cname]["top_kernels"] = top_kernels(core_fn)
+            del value, loc, wts, out
+        emit({"phase": "serve-hahi-att", "config": "Diffusion_DCbase_ swin_large_naive_l4w722422k "
+              "DDIMDepthEstimate_Swin_ADDHAHI(hahi_self_att, hahi_cross_att) O1",
+              "batch": B, "image": [H_IMG, W_IMG], "steps": STEPS, "embed": 512, "heads": 8,
+              "points": 8, "pe_num_feats": 256, "fused_tokens": nv,
+              "level0_queries": (H_IMG // 4) * (W_IMG // 4), "params": a_params,
+              "build_s": build_s, "warmup_s": warm_s, "latency_ms": a_ms,
+              "frames_per_s": B * n_att / (sum(a_ms) / 1e3), "max_memory_allocated_gb": a_peak,
+              "serve_latency_ms_attention_off": lat_ms, "metric_rows": a_rows,
+              "launches_per_request": a_launches, "expected_launches": a_expect,
+              "breakdown": aparts, "attention_share": att_share,
+              "sampler_kernels": sampler_kernels, "msda_core": core,
+              "seconds": time.perf_counter() - t_phase})
+        del amodel, astep, abatches, awarm, batch, pred, met
+        sync()
+
+        # ---- 6d. train the flagship with both attentions on: the training
+        # recipe of phase 6
+        t_phase = t0 = time.perf_counter()
+        model = attention_model(port, torch, tcfg)
+        optimizer = port.make_optimizer(tcfg, 100, model)
+        lc = port.LossComputer(tcfg)
+        step = port.make_train_step(model, lc, optimizer, accum_steps=tcfg.accum_steps)
+        sync()
+        build_s = time.perf_counter() - t0
+        ag = torch.Generator(device=dev).manual_seed(tcfg.seed)
+        t0 = time.perf_counter()
+        step(train_batch(ag), generator=ag)
+        sync()
+        warm_s = time.perf_counter() - t0
+        batches = [train_batch(ag) for _ in range(2)]
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, terms = [], []
+        for batch in batches:
+            port.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, loss_val, met = step(batch, generator=ag)
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            ta_launches = dict(port.LAUNCHES)
+            check(ta_launches == t_expect, f"train-hahi-att launch counts {ta_launches} != "
+                  f"{t_expect}")
+            terms.append(loss_val[0].tolist())
+            check(bool(torch.isfinite(loss_val).all()) and bool(torch.isfinite(met).all()),
+                  f"train-hahi-att step not finite: {loss_val} {met}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hn = "depth_head.hahineck."
+        att_leaves = [hn + "level_embed", hn + "reference_points_fc.weight"] + [
+            f"{hn}{a}.{proj}.weight" for a in ("self_attn", "multi_att")
+            for proj in ("value_proj", "sampling_offsets", "attention_weights", "output_proj")]
+        params_ = dict(model.named_parameters())
+        att_grads = {}
+        for n_ in att_leaves:
+            g_ = params_[n_].grad
+            check(g_ is not None and bool(torch.isfinite(g_).all()), f"no finite gradient in {n_}")
+            att_grads[n_[len(hn):]] = g_.abs().sum().item()
+        check(all(v > 0 for v in att_grads.values()), f"zero attention gradients: {att_grads}")
+        for n_, p in params_.items():
+            check(p.grad is None or bool(torch.isfinite(p.grad).all()),
+                  f"non-finite gradient in {n_}")
+        path_launches["train-hahi-att"] = ta_launches
+        with attention_timers(model.depth_head.hahineck) as att_ms:
+            tparts = train_parts(model, optimizer, lc, batches[0], ag)
+        tparts.update({"forward_" + k: v for k, v in att_ms.items()})
+        emit({"phase": "train-hahi-att", "config": "Diffusion_DCbase_ swin_large_naive_l4w722422k "
+              "DDIMDepthEstimate_Swin_ADDHAHI(hahi_self_att, hahi_cross_att) O1 "
+              "1.0*L1+1.0*L2+1.0*DDIM ADAM", "global_batch": B_T, "accum_steps": ACCUM,
+              "crop": [H_T, W_T], "steps": STEPS, "build_s": build_s, "warmup_s": warm_s,
+              "step_ms": step_ms, "samples_per_s": B_T * len(step_ms) / (sum(step_ms) / 1e3),
+              "max_memory_allocated_gb": peak_gb, "loss_names": get_loss_names(tcfg),
+              "loss_rows": terms, "attention_grad_abs_sum": att_grads,
+              "launches_per_step": ta_launches, "expected_launches": t_expect,
+              "breakdown": tparts, "seconds": time.perf_counter() - t_phase})
         del model, optimizer, step, batches, batch
         sync()
 

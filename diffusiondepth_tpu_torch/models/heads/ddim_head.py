@@ -52,7 +52,10 @@ class DDIMDepthEstimateHead(nn.Module):
     channels, denoiser fusion, HAHI neck and ``vis``. The defaults are the
     JAX head's: the ResNet pyramid and 'add'. ``depth_transform_cfg``
     names the depth transform (``DEFAULT_DEPTH_TRANSFORM`` when None); the
-    head builds it with its compute dtype."""
+    head builds it with its compute dtype. ``hahi_self_att``,
+    ``hahi_cross_att`` and ``hahi_num_points`` switch on the HAHI neck's
+    deformable attentions (off in every shipped head, and reached only by
+    building the head with them, as in JAX)."""
 
     in_channels: Sequence[int] = (64, 128, 256, 512)
     fuse: str = "add"
@@ -64,7 +67,8 @@ class DDIMDepthEstimateHead(nn.Module):
                  num_train_timesteps: int = 1000, hahi_embedding_dim: int = 512,
                  timestep_schedule: str = "uniform", use_fused_denoiser: bool = True,
                  depth_transform_cfg: Optional[Dict[str, Any]] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 hahi_self_att: bool = False, hahi_cross_att: bool = False,
+                 hahi_num_points: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
         in_channels = tuple(in_channels or self.in_channels)
         self.depth_feature_dim = depth_feature_dim
@@ -80,8 +84,9 @@ class DDIMDepthEstimateHead(nn.Module):
         if self.use_hahi:
             from ..necks.hahi import HAHIHeteroNeck
 
-            self.hahineck = HAHIHeteroNeck(in_channels, in_channels,
-                                           hahi_embedding_dim, dtype=dtype)
+            self.hahineck = HAHIHeteroNeck(in_channels, in_channels, hahi_embedding_dim,
+                                           self_att=hahi_self_att, cross_att=hahi_cross_att,
+                                           num_points=hahi_num_points, dtype=dtype)
         self.conv_lateral = nn.ModuleList([
             ConvBNAct(c, fpn_dim, 3, 1, 1, act="relu", dtype=dtype) for c in in_channels])
         self.conv_up = nn.ModuleList([
@@ -175,7 +180,7 @@ class DDIMDepthEstimateHead(nn.Module):
                              "pass zeros at pure inference")
         gt_map_t = self.depth_transform.t(gt_depth_map)
         if self.use_hahi:
-            fp = self.hahineck(fp)
+            fp = self.hahineck(fp, generator=generator)
         cond = self.fpn_condition(fp)
         cond_latent = self.model.upsample_condition(cond, gt_map_t.shape[1:3])
         latent_shape = (gt_map_t.shape[0], gt_map_t.shape[1], gt_map_t.shape[2],

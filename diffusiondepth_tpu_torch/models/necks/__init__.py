@@ -1,0 +1,4 @@
+from .hahi import HAHIHeteroNeck
+from .positional_encoding import SinePositionalEncoding
+
+__all__ = ["HAHIHeteroNeck", "SinePositionalEncoding"]

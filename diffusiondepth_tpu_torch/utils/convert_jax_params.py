@@ -5,12 +5,13 @@ The inverse of ``diffusiondepth_tpu/utils/convert_torch_checkpoint.py``'s
 (Basic, Bottleneck or CBAM blocks) or MPViT backbone under the DDIM head
 (FPN, any of the six depth transforms, ``ScheduledCNNRefine`` with the
 'upsample_add' convs, the 'upsample_concat' ones or neither, the HAHI conv
-path); and of its ``convert_nlspn`` for ``NLSPN`` (its torchvision
-BasicBlock stages, the conv/deconv + BN heads, the propagation layer).
-Each family's registered names share one tree layout; only widths and
-depths differ. The
-tree of a standalone ``models/common.py::LayerNorm`` maps onto that
-module's state dict. It takes the flax ``params`` and ``batch_stats``
+path and its deformable attentions); and of its ``convert_nlspn`` for
+``NLSPN`` (its torchvision BasicBlock stages, the conv/deconv + BN heads,
+the propagation layer). Each family's registered names share one tree
+layout; only widths and depths differ. The tree of a standalone
+``models/common.py::LayerNorm``, ``ops/msda.py::MultiScaleDeformableAttention``,
+HAHI neck, ``PureMSDEnTransformer`` or ``PixelTransformerDecoder`` maps
+onto that module's state dict. It takes the flax ``params`` and ``batch_stats``
 trees as nested dicts of numpy arrays and returns tensors under the
 reference torch names, the names the port's modules use (the CBAM block's
 names are the port's own: no reference converter reads them). A tree with
@@ -22,6 +23,7 @@ inverted:
 * Dense kernel (I, O) -> Linear weight (O, I)
 * BatchNorm {scale, bias} + {mean, var} -> weight, bias, running_mean, running_var
 * LayerNorm / GroupNorm {scale, bias} -> weight, bias
+* attention kernel (C, H, D) / out kernel (H, D, C) -> Linear weight over H * D
 """
 
 from __future__ import annotations
@@ -250,16 +252,91 @@ def _head(out, pre, p, s):
         _conv(out, m + fusion + ".convB.conv", mp["fuse_conv_b"])
 
     if "hahineck" in p:
-        hp, hs = p["hahineck"], s.get("hahineck", {})
-        h = pre + "hahineck."
-        for key in hp:
-            m2 = re.fullmatch(r"(lateral|trans_proj|trans_fusion)_(\d+)", key)
-            if m2:
-                name = "lateral_convs" if m2.group(1) == "lateral" else m2.group(1)
-                base = f"{h}{name}.{m2.group(2)}"
-                _conv_bn(out, base + ".conv", base + ".bn", hp[key], hs.get(key))
-        for key in ("conv_proj", "conv_fusion"):
-            _conv_bn(out, f"{h}{key}.0.conv", f"{h}{key}.0.bn", hp[key], hs.get(key))
+        _hahi(out, pre + "hahineck.", p["hahineck"], s.get("hahineck", {}))
+
+
+def _msda(out, prefix, p):
+    """``ops/msda.py::MultiScaleDeformableAttention``: mmcv's names."""
+    for key in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+        _dense(out, prefix + key, p[key])
+
+
+def _hahi(out, h, hp, hs):
+    """``models/necks/hahi.py::HAHIHeteroNeck``, its attentions too."""
+    for key in hp:
+        m2 = re.fullmatch(r"(lateral|trans_proj|trans_fusion)_(\d+)", key)
+        if m2:
+            name = "lateral_convs" if m2.group(1) == "lateral" else m2.group(1)
+            base = f"{h}{name}.{m2.group(2)}"
+            _conv_bn(out, base + ".conv", base + ".bn", hp[key], hs.get(key))
+    for key in ("conv_proj", "conv_fusion"):
+        _conv_bn(out, f"{h}{key}.0.conv", f"{h}{key}.0.bn", hp[key], hs.get(key))
+    if "level_embed" in hp:
+        out[h + "level_embed"] = hp["level_embed"]
+    for key in ("self_attn", "multi_att"):
+        if key in hp:
+            _msda(out, f"{h}{key}.", hp[key])
+    if "reference_points_fc" in hp:
+        _dense(out, h + "reference_points_fc", hp["reference_points_fc"])
+
+
+def _mha(out, prefix, p):
+    """flax ``MultiHeadDotProductAttention``: the (C, H, D) ``query``,
+    ``key``, ``value`` kernels and the (H, D, C) ``out`` kernel as Linear
+    weights over the H * D features."""
+    for key in ("query", "key", "value"):
+        k = np.asarray(p[key]["kernel"])
+        out[f"{prefix}{key}.weight"] = linear_weight(k.reshape(k.shape[0], -1))
+        out[f"{prefix}{key}.bias"] = np.asarray(p[key]["bias"]).reshape(-1)
+    k = np.asarray(p["out"]["kernel"])
+    out[prefix + "out.weight"] = linear_weight(k.reshape(-1, k.shape[-1]))
+    out[prefix + "out.bias"] = p["out"]["bias"]
+
+
+def _ffn(out, prefix, p):
+    _dense(out, prefix + "fc1", p["Dense_0"])
+    _dense(out, prefix + "fc2", p["Dense_1"])
+
+
+def _mlp(out, prefix, p):
+    for key, v in p.items():
+        j = re.fullmatch(r"Dense_(\d+)", key).group(1)
+        _dense(out, f"{prefix}layers.{j}", v)
+
+
+def _msde_transformer(out, p):
+    """``models/necks/transformer.py::PureMSDEnTransformer``."""
+    out["level_embeds"] = p["level_embeds"]
+    for key, v in p["encoder"].items():
+        i = re.fullmatch(r"layer(\d+)", key).group(1)
+        lay = f"encoder.layers.{i}."
+        _msda(out, lay + "self_attn.", v["self_attn"])
+        _norm(out, lay + "norm1", v["norm1"])
+        _ffn(out, lay + "ffn.", v["ffn"])
+        _norm(out, lay + "norm2", v["norm2"])
+
+
+def _pixel_decoder(out, p):
+    """``models/necks/transformer.py::PixelTransformerDecoder``."""
+    for key, v in p.items():
+        m = re.fullmatch(r"layer(\d+)", key)
+        if m:
+            lay = f"layers.{m.group(1)}."
+            for att in ("cross_attn", "self_attn"):
+                _mha(out, f"{lay}{att}.", v[att])
+            for norm in ("norm1", "norm2", "norm3"):
+                _norm(out, lay + norm, v[norm])
+            _ffn(out, lay + "ffn.", v["ffn"])
+        elif key in ("query_embed", "query_pos"):
+            out[key] = v
+        elif key == "decoder_norm":
+            _norm(out, key, v)
+        elif key in ("class_embed", "mask_embed"):
+            _mlp(out, key + ".", v)
+        elif key == "bins_embed":
+            _dense(out, key, v)
+        else:
+            raise ValueError(f"unknown PixelTransformerDecoder subtree {key!r}")
 
 
 # NLSPN's ConvBNAct (conv [+ BN]) and DeconvBNAct (deconv + BN) modules
@@ -313,8 +390,9 @@ def _n_leaves(tree) -> int:
 
 def jax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[str, torch.Tensor]:
     """Flax ``params`` / ``batch_stats`` of ``Diffusion_DCbase_Model`` (a
-    Swin, ResNet or MPViT backbone + DDIM head) or of ``NLSPNModel`` (a
-    tree with ``prop_layer``) -> the port's ``state_dict`` (f32 tensors).
+    Swin, ResNet or MPViT backbone + DDIM head), of ``NLSPNModel`` (a
+    tree with ``prop_layer``) or of one of the standalone modules above ->
+    the port's ``state_dict`` (f32 tensors).
     NLSPN under TC keeps its constant scale outside the JAX tree; the
     port's ``prop_layer.aff_scale_const`` buffer is then left out. Without ``batch_stats`` the running
     statistics are left out, so a gradient tree (the ``params`` layout)
@@ -328,6 +406,14 @@ def jax_to_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[
         out = {"weight": params["scale"], "bias": params["bias"]}
     elif "prop_layer" in params:
         _nlspn(out, params, batch_stats)
+    elif "sampling_offsets" in params:
+        _msda(out, "", params)
+    elif "level_embeds" in params:
+        _msde_transformer(out, params)
+    elif "query_embed" in params:
+        _pixel_decoder(out, params)
+    elif "conv_proj" in params:
+        _hahi(out, "", params, batch_stats)
     elif not set(params) <= known or not set(batch_stats) <= known:
         raise ValueError(f"unknown parameter tree with keys {sorted(set(params) | set(batch_stats))}")
     if "depth_backbone" in params:

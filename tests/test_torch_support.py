@@ -148,6 +148,47 @@ class Draws:
         return getattr(jax, k)
 
 
+def random_msda_kernels(tree, seed, offset_scale=3.0):
+    """Random ``sampling_offsets`` and ``attention_weights`` kernels (the
+    offsets ``offset_scale`` times N(0, 1 / fan-in)) in every MSDA of a
+    parameter tree, in place."""
+    rng = np.random.RandomState(seed)
+    for key, v in tree.items():
+        if key in ("sampling_offsets", "attention_weights"):
+            k = v["kernel"]
+            scale = offset_scale if key == "sampling_offsets" else 1.0
+            v["kernel"] = (scale * rng.randn(*k.shape) / np.sqrt(k.shape[0])).astype(np.float32)
+        elif isinstance(v, dict):
+            random_msda_kernels(v, seed + 1, offset_scale)
+    return tree
+
+
+class DropoutMasks:
+    """Dropout keep masks drawn in call order from one numpy seed: the
+    same sequence of masks for flax's ``random.bernoulli`` and the port's
+    ``keep_mask``."""
+
+    def __init__(self, seed):
+        self.jax_rng = np.random.RandomState(seed)
+        self.port_rng = np.random.RandomState(seed)
+        self.shapes = []
+        masks = self
+
+        class _Random:
+            def __getattr__(self, k):
+                return getattr(jax.random, k)
+
+            @staticmethod
+            def bernoulli(key, p, shape):
+                return jnp.asarray(masks.jax_rng.rand(*shape) < p)
+
+        self.random = _Random()
+
+    def keep_mask(self, shape, rate, generator, device):
+        self.shapes.append(tuple(shape))
+        return torch.from_numpy(self.port_rng.rand(*shape) < 1.0 - rate)
+
+
 def named(tree, batch_stats=None):
     """A JAX params (or gradient) tree under the port's parameter names."""
     return {k: v.numpy() for k, v in jax_to_state_dict(tree, batch_stats).items()}
