@@ -201,6 +201,28 @@ Phases, one JSON line each:
              operators' dispatch cost (1000 K3 calls through the operator and
              direct); tools/eval_parity with 2 seeds on phase 11's 8 KITTI-DC
              test frames at batch 1 (finite statistics).
+22. ddp    - data parallelism (parallel/): two ranks sharing the one card
+             (gloo: NCCL refuses two ranks on one device), started by the
+             port's launcher. (a) phase 6's recipe at global batch 8 = 2
+             micro-batches x (2 ranks x 2 rows), weights from seed 7240:
+             the first step against one process on rank 0 from the same
+             weights, batch and generator seed (loss and its row, the
+             all-reduced gradient's relative L2 distance, the BatchNorm
+             statistics; bf16 tolerances by DDP_BF16_*), then 2 timed
+             steps: step ms, all-reduce ms and bytes and peak memory per
+             rank, the train launch counts on every rank, and both ranks'
+             parameters and buffers bit-equal; (b) serve's batch of 8 split
+             4 + 4, 20 steps: each rank's rows bit-equal to one process on
+             them from the same latent rows, the metric row equal to
+             evaluate_depth_metrics on the gathered pred (1e-6), pred
+             against one process on all 8 (reported), serve's launch counts
+             on every rank; (c) in f32 with TF32 and cuDNN off, swin_micro
+             under the flagship head (accum 2), two ranks against one
+             process at the CPU tests' tolerances, and phase 12's NLSPN
+             micro model reported beside one process's own repeat; then
+             main's train at --mesh_shape data:1 (a one-rank NCCL group) on
+             an 8-frame KITTI-DC tree against the run with no mesh: logs
+             and checkpoint bit for bit, the same launch counts.
 
 Then a line {"kernels": [...]} (each kernel's "dispatch": "op" for the
 four torch.library operators, "direct" for the rest), the run's seconds and, last,
@@ -1508,6 +1530,371 @@ def export_serve_phase(port, torch, device, flags=None, shape=(B, H_IMG, W_IMG),
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "export-serve", "seconds": time.perf_counter() - t_phase})
     return per_request["plain"]
+
+
+# ---- phase 22: data parallelism (parallel/). Two gloo ranks share the one
+# card (NCCL refuses two ranks on one device): they measure correctness and
+# the ranks' own cost, not NVLink's all-reduce, which needs several cards
+DDP_RANKS = 2
+DDP_SEED = 5  # the generator of the model's draws, alike on every rank
+# the flagship training recipe of phase 6 and the serve configuration of
+# phase 5, weights from seed 7240
+DDP_TRAIN = dict(model_name="Diffusion_DCbase_", backbone_module="swin",
+                 backbone_name="swin_large_naive_l4w722422k",
+                 head_specify="DDIMDepthEstimate_Swin_ADDHAHI", inference_steps=STEPS,
+                 opt_level="O1", batch_size=B_T, accum_steps=ACCUM, patch_height=H_T,
+                 patch_width=W_T, max_depth=88.0, seed=7240)
+DDP_SERVE = dict(model_name="Diffusion_DCbase_", backbone_module="swin",
+                 backbone_name="swin_large_naive_l4w722422k",
+                 head_specify="DDIMDepthEstimate_Swin_ADDHAHI", inference_steps=STEPS,
+                 opt_level="O1", seed=7240)
+# phase 12's micro model, f32: resnet18, prop_time 3, radius 6, 4 x 32x48
+DDP_MICRO = dict(model_name="NLSPN", network="resnet18", prop_time=3, prop_stencil_radius=6,
+                 opt_level="O0", loss="1.0*L1+1.0*L2", max_depth=90.0, seed=11, batch_size=4)
+# bf16 flagship step, two ranks of 2 rows per micro-batch against one process
+# of 4: BatchNorm sums its moments in another order, and cuBLAS and cuDNN
+# pick other algorithms at half the rows, each rounding to bf16 (2^-8) at
+# other points; the differences pass through 20 sampler steps and their
+# backward. The loss and its row are held to 1e-2 relative, the gradient's
+# relative L2 distance to 5e-2, the running statistics to 1e-2 of each
+# buffer's largest value
+DDP_BF16_LOSS_TOL, DDP_BF16_GRAD_TOL, DDP_BF16_STATS_TOL = 1e-2, 5e-2, 1e-2
+# f32 with TF32 and cuDNN off, two ranks against one process: the sums'
+# order only. The CPU tests' tolerances (test_torch_parallel_train): loss
+# and rows 1e-5, the metric row 1e-4, each gradient leaf 1e-3 of its
+# largest value (the sampler carries a summation-order difference to
+# 1.6e-4 of the denoiser's first layer on the CPU)
+DDP_F32_TOL, DDP_F32_METRIC_TOL, DDP_F32_GRAD_TOL = 1e-5, 1e-4, 1e-3
+
+
+def _ddp_flat_grads(torch, model):
+    return torch.cat([p.grad.float().reshape(-1) for p in model.parameters()
+                      if p.grad is not None])
+
+
+def _ddp_max_rel(torch, a, b):
+    """The largest |a - b| over the largest |b|, of two dicts of tensors."""
+    return max(((a[k].double() - b[k].double()).abs().max()
+                / b[k].double().abs().max().clamp_min(1e-30)).item() for k in b)
+
+
+def ddp_rank() -> dict:
+    """One rank of phase 22 (run by ``parallel.launch`` on every rank):
+    (a) the flagship training step, (b) a served request, (c) the f32
+    micro model, each against one process on rank 0. Returns rank 0's
+    record with every rank's numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import diffusiondepth_tpu_torch as port
+    from diffusiondepth_tpu_torch.metrics import evaluate_depth_metrics
+    from diffusiondepth_tpu_torch.parallel import create_mesh, shard_batch
+    from diffusiondepth_tpu_torch.parallel.mesh import broadcast_module
+    from diffusiondepth_tpu_torch.training.optim import make_lr_schedule
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(f"data:{DDP_RANKS}")
+    dev, rank = mesh.device, mesh.rank
+    rec = {"rank": rank, "backend": mesh.backend, "device": str(dev)}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # ---- (a) the flagship training step
+    tcfg = port.Config(**DDP_TRAIN, mesh_shape=f"data:{DDP_RANKS}").finalize()
+    one_cfg = dataclasses.replace(tcfg, mesh_shape=None)
+    model = port.build_model(tcfg, device=dev)
+    broadcast_module(model, mesh)
+    lc = port.LossComputer(tcfg)
+    dgen = gen(1)  # the data: the same host batches on every rank
+
+    def train_batch():
+        gt = (torch.rand(B_T, H_T, W_T, 1, generator=dgen, device=dev) * 80).clamp(0, 88)
+        return {"rgb": torch.randn(B_T, H_T, W_T, 3, generator=dgen, device=dev), "gt": gt}
+
+    batches = [train_batch() for _ in range(3)]
+    running = {n for n, _ in model.named_buffers() if "running" in n}
+    if rank == 0:  # one process on the whole host batch, the same weights and seed
+        ref = port.build_model(one_cfg, device=dev)
+        ref.load_state_dict(model.state_dict())
+        ref_step = port.make_train_step(ref, lc, port.make_optimizer(one_cfg, 100, ref),
+                                        accum_steps=ACCUM)
+        r_loss, r_row, _ = ref_step(batches[0], gen(DDP_SEED))
+        r_grad = _ddp_flat_grads(torch, ref)
+        r_stats = {n: b.clone() for n, b in ref.named_buffers() if n in running}
+        del ref, ref_step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    step = port.make_train_step(model, lc, port.make_optimizer(tcfg, 100, model),
+                                accum_steps=ACCUM, mesh=mesh)
+    tgen = gen(DDP_SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, comm, launches, rows = [], [], [], []
+    for i, batch in enumerate(batches):
+        mine = shard_batch(batch, mesh, ACCUM)
+        sync()
+        dist.barrier()
+        port.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, row, met = step(mine, tgen)
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(dict(port.LAUNCHES))
+        comm.append(dict(step.comm))
+        rows.append(row[0].tolist())
+        if i == 0:  # the step from the reference's weights
+            grad = _ddp_flat_grads(torch, model)
+            stats = {n: b.clone() for n, b in model.named_buffers() if n in running}
+            if rank == 0:
+                rec["loss"] = [loss.item(), r_loss.item()]
+                rec["loss_rel_err"] = abs(loss.item() - r_loss.item()) / abs(r_loss.item())
+                rec["row_rel_err"] = ((row - r_row).abs().max() / r_row.abs().max()).item()
+                rec["grad_rel_l2"] = ((grad - r_grad).norm() / r_grad.norm()).item()
+                rec["grad_elems"] = grad.numel()
+                rec["stats_rel_err"] = _ddp_max_rel(torch, stats, r_stats)
+                del r_grad
+            del grad, stats
+    rec.update(step_ms=step_ms, comm=comm, train_launches=launches, loss_rows=rows,
+               train_finite=bool(torch.isfinite(row).all() and torch.isfinite(met).all()),
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    # the ranks' parameters and buffers after the 3 updates, bit for bit
+    mismatched = 0
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            mine_t = t.detach().cpu()
+            theirs = mine_t.clone()
+            dist.broadcast(theirs, 0)
+            mismatched += int(not torch.equal(mine_t, theirs))
+    rec["tensors_unlike_rank0"] = mismatched
+    del model, step, batches, mine, loss, row, met
+    torch.cuda.empty_cache()
+
+    # ---- (b) a served request, split over the ranks
+    scfg = port.Config(**DDP_SERVE, mesh_shape=f"data:{DDP_RANKS}").finalize()
+    smodel = port.build_model(scfg, device=dev)
+    broadcast_module(smodel, mesh)
+    rgen = gen(scfg.seed)
+    rgb = torch.randn(B, H_IMG, W_IMG, 3, generator=rgen, device=dev)
+    depth = torch.rand(B, H_IMG, W_IMG, 1, generator=rgen, device=dev) * 79 + 1
+    req = {"rgb": rgb, "gt": depth * (torch.rand(B, H_IMG, W_IMG, 1, generator=rgen,
+                                                  device=dev) < 0.3)}
+    estep = port.make_eval_step(smodel, mesh=mesh, gather=True)
+    estep(shard_batch(req, mesh), generator=gen(DDP_SEED))  # warm-up
+    sync()
+    dist.barrier()
+    port.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred, met, _ = estep(shard_batch(req, mesh), generator=gen(DDP_SEED))
+    sync()
+    rec["eval_ms"] = 1e3 * (time.perf_counter() - t0)
+    rec["eval_launches"] = dict(port.LAUNCHES)
+    rec["eval_metric"] = met[0].tolist()
+    rec["metric_vs_gathered"] = ((met - evaluate_depth_metrics(req, {"pred": pred})).abs().max()
+                                 / met.abs().max()).item()
+    one = port.make_eval_step(smodel)
+    # the starting latent of the whole batch, as each rank draws it
+    lat = torch.randn((B, H_IMG // 2, W_IMG // 2, 16), generator=gen(DDP_SEED), device=dev)
+    per = B // DDP_RANKS
+    rows_ = slice(rank * per, (rank + 1) * per)
+    p4, _, _ = one({k: v[rows_] for k, v in req.items()}, init_latent=lat[rows_])
+    rec["pred_rows_equal_one_process"] = bool(torch.equal(p4, pred[rows_]))
+    if rank == 0:
+        p8, m8, _ = one(req, generator=gen(DDP_SEED))
+        rec["pred_rel_err_batch8"] = ((pred - p8).abs().max() / p8.abs().max()).item()
+        rec["metric_rel_err_batch8"] = ((met - m8).abs().max() / m8.abs().max()).item()
+        rec["pred_shape"] = list(pred.shape)
+        rec["pred_finite"] = bool(torch.isfinite(pred).all())
+    del smodel, estep, one, pred, req
+    torch.cuda.empty_cache()
+
+    # ---- (c) micro models in f32, TF32 and cuDNN off: two ranks against one
+    # process (loss, rows, gradient, the parameters after Adam's first
+    # update). cuDNN is off because it picks its algorithms by the batch's
+    # rows (2 on a rank, 4 in one process), whose f32 roundings parted by 3%
+    # of an NLSPN micro gradient leaf (NVIDIA H100 80GB HBM3, 700 W);
+    # PyTorch's own convolutions leave the ranks' reductions as the
+    # difference. The flagship head on swin_micro is held to the CPU tests'
+    # tolerances; phase 12's NLSPN micro model is reported beside one
+    # process's own repeat
+    def micro_batch(with_dep):
+        rng = np.random.RandomState(1)
+        h, w = (32, 48) if with_dep else (64, 96)
+        gt = (rng.rand(4, h, w, 1) * (80 if with_dep else 8) + 1).astype(np.float32)
+        gt[:2, :h // 2] = 0.0  # rank 0's rows mostly invalid
+        out = {"rgb": rng.randn(4, h, w, 3).astype(np.float32), "gt": gt}
+        if with_dep:
+            out["dep"] = gt * (rng.rand(4, h, w, 1) > 0.9)
+        return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+    def micro_step(cfg_, batch, step_mesh, nlspn):
+        m = port.build_model(cfg_, device=dev)
+        if nlspn:
+            randomize_offset_conv(torch, m, 11, 2.0)
+        broadcast_module(m, step_mesh)
+        mstep = port.make_train_step(m, port.LossComputer(cfg_),
+                                     port.make_optimizer(cfg_, 10, m),
+                                     accum_steps=cfg_.accum_steps, mesh=step_mesh)
+        before = {n: p.detach().clone() for n, p in m.named_parameters()}
+        loss, row, met = mstep(batch, gen(DDP_SEED))
+        return {"loss": loss, "row": row, "metric": met,
+                "grads": {n: p.grad.clone() for n, p in m.named_parameters()
+                          if p.grad is not None},
+                "delta": {n: p.detach() - before[n] for n, p in m.named_parameters()}}
+
+    def leaf_err(a, b):
+        """The worst leaf's max |a - b| over its largest |b| (floored at
+        1e-4 of the largest leaf, as the tests' close_leaves)."""
+        gmax = max(g.abs().max().item() for g in b.values())
+        errs = {n: ((a[n] - g).abs().max() / max(g.abs().max().item(), 1e-4 * gmax)).item()
+                for n, g in b.items()}
+        worst = max(errs, key=errs.get)
+        return worst, errs[worst]
+
+    rec["micro"] = {}
+    for name, kw, nlspn in (
+            ("swin_micro", dict(model_name="Diffusion_DCbase_", backbone_module="swin",
+                                backbone_name="swin_micro",
+                                head_specify="DDIMDepthEstimate_Swin_ADDHAHI",
+                                head_in_channels="32,64,128,256", inference_steps=2,
+                                batch_size=4, accum_steps=2, max_depth=88.0, seed=11), False),
+            ("nlspn_micro", DDP_MICRO, True)):
+        mcfg = port.Config(**kw, mesh_shape=f"data:{DDP_RANKS}").finalize()
+        one_cfg = dataclasses.replace(mcfg, mesh_shape=None)
+        mb = micro_batch(nlspn)
+        with torch.backends.cudnn.flags(enabled=False):
+            ranks = micro_step(mcfg, shard_batch(mb, mesh, mcfg.accum_steps), mesh, nlspn)
+            if rank == 0:
+                one = micro_step(one_cfg, mb, None, nlspn)
+                again = micro_step(one_cfg, mb, None, nlspn) if nlspn else None
+        if rank == 0:
+            worst, err = leaf_err(ranks["grads"], one["grads"])
+            lr0 = make_lr_schedule(one_cfg, 10)(0)
+            r = {"loss": [ranks["loss"].item(), one["loss"].item()],
+                 "loss_rel_err": abs(ranks["loss"].item() - one["loss"].item())
+                 / abs(one["loss"].item()),
+                 "row_rel_err": ((ranks["row"] - one["row"]).abs().max()
+                                 / one["row"].abs().max()).item(),
+                 "metric_rel_err": ((ranks["metric"] - one["metric"]).abs().max()
+                                    / one["metric"].abs().max()).item(),
+                 "worst_leaf": worst, "worst_grad_err": err,
+                 "delta_over_lr": max((ranks["delta"][n] - d).abs().max().item()
+                                      for n, d in one["delta"].items()) / lr0}
+            if again is not None:  # one process against itself
+                r["repeat_worst_leaf"], r["repeat_grad_err"] = leaf_err(again["grads"],
+                                                                        one["grads"])
+            rec["micro"][name] = r
+        del ranks
+        torch.cuda.empty_cache()
+    gathered = [None] * DDP_RANKS
+    dist.all_gather_object(gathered, rec)
+    return {"ranks": gathered}
+
+
+def ddp_phase(port, torch, dev, t_expect, s_expect) -> dict:
+    """Phase 22: the ranks of ``ddp_rank`` through the port's launcher, two
+    on the one card (gloo), held to their checks; then main's cli run at
+    ``--mesh_shape data:1`` in a one-rank NCCL group against the run with
+    no mesh, logs and checkpoint bit for bit. Returns rank 0's launch
+    counts of one training step and one served request."""
+    import tempfile
+
+    from diffusiondepth_tpu_torch import main as pmain
+    from diffusiondepth_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = launch(ddp_rank, [dev] * DDP_RANKS, 29511)
+    r0 = out["ranks"][0]
+    for r in out["ranks"]:
+        for i, got in enumerate(r["train_launches"]):
+            check(got == t_expect, f"ddp rank {r['rank']} step {i} launches {got} != {t_expect}")
+        check(r["eval_launches"] == s_expect,
+              f"ddp rank {r['rank']} request launches {r['eval_launches']} != {s_expect}")
+        check(r["tensors_unlike_rank0"] == 0,
+              f"ddp rank {r['rank']}: {r['tensors_unlike_rank0']} tensors differ from rank 0's")
+        check(r["pred_rows_equal_one_process"],
+              f"ddp rank {r['rank']}: its rows of pred differ from one process on them")
+        check(r["metric_vs_gathered"] <= 1e-6, f"ddp metric row: {r['metric_vs_gathered']}")
+        check(r["train_finite"], f"ddp rank {r['rank']}: non-finite loss or metric row")
+        check(r["comm"][0]["bytes"] == 4 * r0["grad_elems"],
+              f"ddp all-reduce bytes {r['comm'][0]['bytes']} != 4 x {r0['grad_elems']}")
+    check(r0["loss_rel_err"] <= DDP_BF16_LOSS_TOL and r0["row_rel_err"] <= DDP_BF16_LOSS_TOL,
+          f"ddp loss {r0['loss']} rel err {r0['loss_rel_err']}, row {r0['row_rel_err']}")
+    check(r0["grad_rel_l2"] <= DDP_BF16_GRAD_TOL, f"ddp gradient rel L2 {r0['grad_rel_l2']}")
+    check(r0["stats_rel_err"] <= DDP_BF16_STATS_TOL,
+          f"ddp BatchNorm statistics rel err {r0['stats_rel_err']}")
+    check(r0["pred_finite"] and r0["pred_shape"] == [B, H_IMG, W_IMG, 1],
+          f"ddp pred {r0['pred_shape']}")
+    mi = r0["micro"]["swin_micro"]
+    check(mi["loss_rel_err"] <= DDP_F32_TOL and mi["row_rel_err"] <= DDP_F32_TOL
+          and mi["metric_rel_err"] <= DDP_F32_METRIC_TOL
+          and mi["worst_grad_err"] <= DDP_F32_GRAD_TOL and mi["delta_over_lr"] <= 2.0,
+          f"ddp f32 micro model: {mi}")
+    emit({"phase": "ddp", "what": f"{DDP_RANKS} gloo ranks on one card through parallel.launch",
+          "train": {"config": "phase 6's recipe, global batch 8 = 2 x (2 ranks x 2 rows), "
+                    "352x906, bf16, drop-path 0.1, seed 7240",
+                    "loss": r0["loss"], "loss_rel_err": r0["loss_rel_err"],
+                    "row_rel_err": r0["row_rel_err"], "grad_rel_l2": r0["grad_rel_l2"],
+                    "stats_rel_err": r0["stats_rel_err"],
+                    "tols": [DDP_BF16_LOSS_TOL, DDP_BF16_GRAD_TOL, DDP_BF16_STATS_TOL],
+                    "step_ms_by_rank": [r["step_ms"] for r in out["ranks"]],
+                    "allreduce_by_rank": [r["comm"] for r in out["ranks"]],
+                    "grad_bytes": 4 * r0["grad_elems"],
+                    "peak_gb_by_rank": [r["peak_gb"] for r in out["ranks"]],
+                    "loss_rows": r0["loss_rows"], "launches_per_step": r0["train_launches"][-1]},
+          "serve": {"batch": f"{B} = {DDP_RANKS} x {B // DDP_RANKS}",
+                    "eval_ms_by_rank": [r["eval_ms"] for r in out["ranks"]],
+                    "metric_row": r0["eval_metric"],
+                    "metric_vs_gathered": [r["metric_vs_gathered"] for r in out["ranks"]],
+                    "pred_rows_equal_one_process": True,
+                    "pred_rel_err_batch8": r0["pred_rel_err_batch8"],
+                    "metric_rel_err_batch8": r0["metric_rel_err_batch8"],
+                    "launches_per_request": r0["eval_launches"]},
+          "micro_f32": r0["micro"], "seconds": time.perf_counter() - t_phase})
+
+    # ---- (c) main at --mesh_shape data:1: a one-rank NCCL group
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kitti_ddp_")
+    try:
+        write_kitti_tree(root, {"train": (8, 375, 1242), "val": (8, 375, 1242),
+                                "test": (8, 352, 1216)})
+        flags = ["--data_name", "KITTIDC", "--dir_data", root,
+                 "--split_json", os.path.join(root, "split.json"), *CLI_FLAGS,
+                 "--batch_size", "8", "--accum_steps", "2", "--test_batch_size", "8",
+                 "--epochs", "1", "--save_full", "--port", "29512"]
+        runs = {}
+        for name, extra in (("none", []), ("data:1", ["--mesh_shape", "data:1"])):
+            _, state, launches, secs = run_main(port, torch, dev, flags + extra,
+                                                os.path.join(root, name.replace(":", "")),
+                                                pmain.train)
+            runs[name] = (state.model.state_dict(), launches, secs)
+        files = ("loss_train.txt", "metric_train.txt", "metric_val.txt", "metric_test.txt",
+                 "scalars_train.jsonl", "scalars_val.jsonl", "scalars_test.jsonl")
+        same_logs = all(open(os.path.join(root, "none", f)).read()
+                        == open(os.path.join(root, "data1", f)).read() for f in files)
+        ck = [torch.load(os.path.join(root, d, "model_00001.ckpt"), weights_only=True)
+              for d in ("none", "data1")]
+        same_ckpt = (ck[0]["state_dict"].keys() == ck[1]["state_dict"].keys() and all(
+            torch.equal(ck[0]["state_dict"][k], ck[1]["state_dict"][k])
+            for k in ck[0]["state_dict"]))
+        check(runs["none"][1] == runs["data:1"][1],
+              f"ddp cli launches {runs['data:1'][1]} != {runs['none'][1]}")
+        check(same_logs and same_ckpt,
+              f"ddp cli data:1 against no mesh: logs equal {same_logs}, checkpoint {same_ckpt}")
+        emit({"phase": "ddp", "run": "cli --mesh_shape data:1 (one-rank NCCL group)",
+              "seconds": {k: v[2] for k, v in runs.items()}, "logs_bit_equal": same_logs,
+              "checkpoint_bit_equal": same_ckpt, "launches": runs["data:1"][1]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "ddp", "seconds": time.perf_counter() - t_phase,
+          "cli_seconds": time.perf_counter() - t0})
+    return {k: r0["train_launches"][-1][k] + r0["eval_launches"][k] for k in t_expect}
 
 
 def main() -> int:
@@ -3345,6 +3732,13 @@ def main() -> int:
         # ---- 21. the deployment path: reference checkpoint -> port
         # checkpoint -> exported artifacts -> batch serving
         path_launches["export-serve"] = export_serve_phase(port, torch, dev)
+
+        # ---- 22. data parallelism: two ranks of the flagship's training step
+        # and of a served request on the one card, and main at data:1
+        path_launches["ddp"] = ddp_phase(port, torch, dev, t_expect, {
+            "conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk,
+            **{k: 0 for k in port.LAUNCHES if k not in ("conv_link", "ddim_step",
+                                                      "window_attention")}})
 
     # (route, source, TPU kernel, the path whose run counts its launches:
     # the path at whose shapes the kernel phase timed it). K1 and K4 run on

@@ -5,8 +5,10 @@ flags and one ``args.json`` describe a run in both packages. The port keeps
 its own copy: it imports nothing of the JAX package.
 
 Two differences: ``compute_dtype`` is a torch dtype, and ``finalize``
-raises for a ``mesh_shape`` of more than one device (the port runs on one
-GPU). The module has no side effects: build configs with ``Config()``,
+raises for a ``mesh_shape`` with a 'model' axis of more than one device
+(tensor parallelism is not ported; a 'data' axis is checked against the
+devices by ``parallel.create_mesh``, as JAX checks it). The module has no
+side effects: build configs with ``Config()``,
 ``parse_args(argv)`` or ``Config.from_dict(...)``.
 """
 
@@ -135,7 +137,7 @@ class Config:
 
     # ---- extensions of the JAX package (no reference equivalent) ----
     dtype: Optional[str] = None  # compute dtype override: float32|bfloat16
-    # e.g. "data:8"; the port takes one device ("data:1") until M17
+    # e.g. "data:8": one process per device (parallel/mesh.py)
     mesh_shape: Optional[str] = None
     test_batch_size: int = 1  # the reference evaluates at batch 1
     # gradient accumulation: micro-batches per optimizer step, so the
@@ -170,11 +172,11 @@ class Config:
             self.save_dir = "../experiments/" + current_time + self.save
         if self.dtype is None:
             self.dtype = "float32" if self.opt_level == "O0" else "bfloat16"
-        if mesh_devices(self.mesh_shape) > 1:
+        if mesh_axes(self.mesh_shape).get("model", 1) > 1:
             raise NotImplementedError(
-                f"--mesh_shape {self.mesh_shape} asks for {mesh_devices(self.mesh_shape)} "
-                "devices; the port runs on one GPU until multi-GPU lands (ROADMAP Queue 1, "
-                "M17: parallel/mesh.py)")
+                f"--mesh_shape {self.mesh_shape}: tensor parallelism over a 'model' axis "
+                "(JAX's state_sharding) is not ported yet: ROADMAP, 'The port slices left', "
+                "item 1")
         return self
 
     @property
@@ -314,13 +316,23 @@ def parse_args(argv: Optional[List[str]] = None) -> Config:
     return Config.from_dict(vars(ns))
 
 
-def mesh_devices(spec: Optional[str]) -> int:
-    """The number of devices a ``--mesh_shape`` spec such as "data:4,model:2"
-    asks for; 1 when it is not given."""
-    n = 1
+def mesh_axes(spec: Optional[str]) -> Dict[str, int]:
+    """The axes of a ``--mesh_shape`` spec such as "data:4,model:2"; empty
+    when it is not given."""
+    axes = {}
     for part in (spec or "").split(","):
         if part.strip():
-            n *= int(part.split(":")[1])
+            name, size = part.split(":")
+            axes[name.strip()] = int(size)
+    return axes
+
+
+def mesh_devices(spec: Optional[str]) -> int:
+    """The number of devices a ``--mesh_shape`` spec asks for; 1 when it
+    is not given."""
+    n = 1
+    for size in mesh_axes(spec).values():
+        n *= size
     return n
 
 

@@ -1,9 +1,12 @@
 """Batched, sharded, prefetching data loader (port of
 ``diffusiondepth_tpu/data/loader.py``).
 
-Each host reads ``indices[host_index::host_count]`` (the per-rank shard,
-kept for multi-GPU), the order is shuffled per epoch with
-``RandomState(seed + epoch)``, samples decode on a thread pool, and
+Each host reads ``indices[host_index::host_count]``, the order is shuffled
+per epoch with ``RandomState(seed + epoch)``, and each of the host's
+``rank_count`` data-parallel ranks loads only its rows of each batch: its
+slice of every micro-block of ``accum_steps`` (``parallel/mesh.py::
+rank_rows``; a batch that does not divide over the ranks raises, as JAX's
+placement of it on the mesh does). Samples decode on a thread pool, and
 finished numpy batches wait in a queue ``prefetch`` deep so that host IO
 overlaps the device's steps. A worker's error is raised in the consumer.
 
@@ -23,6 +26,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from ..parallel.mesh import rank_rows
+
 
 def _collate(samples) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
@@ -38,7 +43,8 @@ def sample_seed(seed: int, epoch: int, index: int) -> int:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_threads: int = 4, prefetch: int = 2,
-                 seed: int = 0, host_index: int = 0, host_count: int = 1):
+                 seed: int = 0, host_index: int = 0, host_count: int = 1,
+                 rank_index: int = 0, rank_count: int = 1, accum_steps: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -48,6 +54,9 @@ class DataLoader:
         self.seed = seed
         self.host_index = host_index
         self.host_count = host_count
+        self.rank_index = rank_index
+        self.rank_count = rank_count
+        self.accum_steps = accum_steps
         self.epoch = 0
         # seconds the producer spent on each batch of the last iteration
         # (decode, augmentation, collation; not the time blocked on a full
@@ -70,10 +79,14 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def batches(self):
-        """The dataset indices of each batch of this epoch, in order."""
+        """The dataset indices of each batch of this epoch that this rank
+        loads, in order."""
         indices = self._indices()
-        return [indices[i * self.batch_size:(i + 1) * self.batch_size]
-                for i in range(len(self))]
+        host = [indices[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        if self.rank_count == 1:
+            return host
+        return [b[rank_rows(len(b), self.accum_steps, self.rank_index, self.rank_count)]
+                for b in host]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self.batches()

@@ -2,7 +2,12 @@
 ``diffusiondepth_tpu/losses/refine_losses.py``): masked L1, edge-aware
 smoothness stopped at instance edges, and the 3D-box shape regulariser,
 with a cfg-driven dispatch. Static shapes: masked means, no boolean
-gathers."""
+gathers.
+
+Under an active data-parallel mesh the masked means (``l1_depth_loss``,
+``shape_reg_loss``) take their numerator and denominator over the global
+batch; ``depth_smooth_loss`` is a plain mean over equal-sized rows on
+every rank, which the loss's share turns into the global mean."""
 
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.geometry import convert_depth_map_to_points
+from ..parallel.mesh import all_reduce_sum
 from ..ops.resize import adaptive_max_pool2d, resize_bilinear, resize_nearest
 
 
@@ -23,7 +29,8 @@ def l1_depth_loss(pred_depth: torch.Tensor, gt_depth: torch.Tensor, weight: floa
     loss = (pred_depth - gt_depth).abs() * gt_mask
     if weight_map is not None:
         loss = loss * weight_map
-    return weight * loss.sum() / gt_mask.sum().clamp_min(1.0)
+    num, den = all_reduce_sum(torch.stack([loss.sum(), gt_mask.sum()]))
+    return weight * num / den.clamp_min(1.0)
 
 
 def depth_smooth_loss(pred_depth: torch.Tensor, image: torch.Tensor,
@@ -77,7 +84,8 @@ def shape_reg_loss(pred_depth: torch.Tensor, foreground_masks: torch.Tensor,
     excess = torch.where(box_valid[:, None, :], excess, torch.full_like(excess, float("inf")))
     per_pt = excess.min(dim=-1).values
     per_pt = torch.where(torch.isfinite(per_pt), per_pt, torch.zeros_like(per_pt))
-    return weight * (per_pt * fg).sum() / fg.sum().clamp_min(1.0)
+    num, den = all_reduce_sum(torch.stack([(per_pt * fg).sum(), fg.sum()]))
+    return weight * num / den.clamp_min(1.0)
 
 
 depth_loss_dict: Dict[str, object] = {

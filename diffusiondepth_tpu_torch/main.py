@@ -18,7 +18,20 @@ its panels and per-sample files:
   (batch 0 and a ragged last batch left out of the timed region).
 
 Both run on the card unless the caller passes ``device="cpu"``; the
-command line has no device flag. Batches come from the loader as numpy
+command line has no device flag.
+
+Ranks (``parallel/``): ``--mesh_shape data:N`` runs N data-parallel ranks,
+one process per device, as JAX's ``data`` axis and the reference's
+``mp.spawn``: with no launcher environment ``main`` spawns them and they
+meet at ``localhost:--port``; under ``torchrun``'s environment each joins
+that group. With no ``--mesh_shape`` the run takes every visible card
+(one process without a group where there is one card); on the CPU it is
+one process. A ``data:1`` mesh runs in this process as a one-rank group.
+``--batch_size`` is the batch of one host; each rank loads and steps on
+its rows. Rank 0 alone prints the logs and writes ``args.json``, the
+source backup, the summaries, the checkpoints (a barrier follows each)
+and the per-sample files; every rank restores a checkpoint. A spawned
+run returns None; a worker that fails makes it raise. Batches come from the loader as numpy
 arrays and go to the card from pinned memory. The random draws differ
 from JAX's key splits: one ``torch.Generator`` on the device, seeded from
 ``seed``, feeds training (drop-path, the sampler's starting latent and
@@ -45,9 +58,10 @@ import torch
 
 from .config import Config, parse_args
 from .data import DataLoader, get as get_data
-from .device import resolve_device
 from .losses import LossComputer
 from .models.diffusion_model import build_model
+from .parallel.launch import run_ranks
+from .parallel.mesh import barrier, broadcast_module, gather_rows, process_info
 from .summary import get as get_summary
 from .training.steps import make_eval_step, make_train_step
 from .training.train_state import create_train_state
@@ -98,9 +112,36 @@ def _host_output(pred: torch.Tensor, extras: Dict[str, torch.Tensor]) -> Dict[st
     return {k: v.detach().float().cpu().numpy() for k, v in {"pred": pred, **extras}.items()}
 
 
-def _eval_pass(eval_step, loader, writer, dev, generator, times):
+def _host_batch(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """Every rank's rows of a loader batch, in rank order: the host batch
+    (the batch itself without a mesh)."""
+    if mesh is None or mesh.world_size == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(v)
+            out[k] = gather_rows(t.to(mesh.device) if mesh.backend == "nccl" else t,
+                                 mesh).cpu().numpy()
+    return out
+
+
+class _NoWriter:
+    """The summary of a rank other than 0: it writes nothing."""
+
+    def add(self, *args, **kwargs):
+        pass
+
+    def update(self, *args, **kwargs):
+        pass
+
+    def save(self, *args, **kwargs):
+        pass
+
+
+def _eval_pass(eval_step, loader, writer, dev, generator, times, mesh=None):
     """One pass over a split: metric rows to ``writer``; returns the last
-    (batch, output) for the panel."""
+    (host batch, output) for the panel."""
     last = None
     for batch in loader:
         t0 = time.perf_counter()
@@ -108,7 +149,9 @@ def _eval_pass(eval_step, loader, writer, dev, generator, times):
         writer.add(metric=metric_val.cpu().numpy())
         last = (batch, _host_output(pred, extras))
         times.append(time.perf_counter() - t0)
-    return last or (None, None)
+    if last is None:
+        return None, None
+    return _host_batch(last[0], mesh), last[1]
 
 
 def _finish_profile(prof, profile_dir: str, dev: torch.device) -> None:
@@ -123,43 +166,62 @@ def _finish_profile(prof, profile_dir: str, dev: torch.device) -> None:
 
 
 def train(args: Config, device=None):
-    dev = resolve_device(device)
-    cfg = check_args(args)
-    os.makedirs(cfg.save_dir, exist_ok=True)
-    cfg.save_json(os.path.join(cfg.save_dir, "args.json"))
-    backup_source_code(os.path.join(cfg.save_dir, "code"))
-    print(f"device: {dev} ({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'})")
+    return run_ranks(_train, check_args(args), device, result=False)
 
+
+def test(args: Config, device=None):
+    """One pass over the test split with per-frame timing."""
+    return run_ranks(_test, check_args(args), device, result=False)
+
+
+def _train(cfg: Config, dev: torch.device, mesh):
+    main_rank = mesh is None or mesh.is_main
+    if main_rank:
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        cfg.save_json(os.path.join(cfg.save_dir, "args.json"))
+        backup_source_code(os.path.join(cfg.save_dir, "code"))
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+        print(f"device: {dev} ({name})" + (f" | mesh: {mesh.axes}" if mesh else ""))
+
+    # the host's shard of the dataset and this rank's rows of each batch
+    shard = dict(process_info(), rank_index=mesh.local_rank,
+                 rank_count=mesh.local_size) if mesh else {}
     data_cls = get_data(cfg)
     ds_train, ds_val, ds_test = (data_cls(cfg, m) for m in ("train", "val", "test"))
     loader_train = DataLoader(ds_train, cfg.batch_size, shuffle=True, drop_last=True,
                               num_threads=max(cfg.num_threads, 1), prefetch=cfg.prefetch,
-                              seed=cfg.seed)
+                              seed=cfg.seed, accum_steps=cfg.accum_steps, **shard)
     loader_val = DataLoader(ds_val, cfg.test_batch_size, shuffle=False, num_threads=2,
-                            seed=cfg.seed)
+                            seed=cfg.seed, **shard)
     loader_test = DataLoader(ds_test, cfg.test_batch_size, shuffle=False, num_threads=2,
-                             seed=cfg.seed)
+                             seed=cfg.seed, **shard)
+    for loader in (loader_train, loader_val, loader_test):
+        loader.batches()  # a batch that does not divide over the ranks raises here
 
     steps_per_epoch = max(1, len(ds_train) // cfg.batch_size)
     state = _build_state(cfg, dev, steps_per_epoch)
     start_epoch = 1
-    if cfg.pretrain:
+    if cfg.pretrain:  # every rank restores
         ckpt = load_checkpoint(cfg.pretrain)
         restore_state(state, ckpt)
-        print(f"loaded checkpoint {cfg.pretrain} (epoch {ckpt.get('epoch', '?')})")
+        if main_rank:
+            print(f"loaded checkpoint {cfg.pretrain} (epoch {ckpt.get('epoch', '?')})")
         if cfg.resume:
             start_epoch = int(ckpt.get("epoch", 0)) + 1
         del ckpt
+    broadcast_module(state.model, mesh)  # the ranks start from rank 0's weights
 
     if cfg.accum_steps > 1 and cfg.batch_size % cfg.accum_steps:
         raise ValueError(f"batch_size {cfg.batch_size} not divisible by accum_steps "
                          f"{cfg.accum_steps}")
     train_step = make_train_step(state.model, LossComputer(cfg), state.optimizer,
-                                 accum_steps=cfg.accum_steps)
+                                 accum_steps=cfg.accum_steps, mesh=mesh)
     summary_cls = get_summary(cfg)
-    eval_step = make_eval_step(state.model, extra_keys=getattr(summary_cls, "SAVE_KEYS", ()))
-    writer_train, writer_val, writer_test = (summary_cls(cfg.save_dir, m, cfg)
-                                             for m in ("train", "val", "test"))
+    eval_step = make_eval_step(state.model, extra_keys=getattr(summary_cls, "SAVE_KEYS", ()),
+                               mesh=mesh, gather=True)
+    writer_train, writer_val, writer_test = (
+        summary_cls(cfg.save_dir, m, cfg) if main_rank else _NoWriter()
+        for m in ("train", "val", "test"))
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     times = state.timings
 
@@ -170,8 +232,8 @@ def train(args: Config, device=None):
         t_prev = time.perf_counter()
         for i, batch in enumerate(loader_train):
             t_got = time.perf_counter()
-            # profiler window: steps 10-15 of the first epoch
-            if cfg.profile_dir and epoch == start_epoch and i == 10:
+            # profiler window: steps 10-15 of the first epoch, on rank 0
+            if cfg.profile_dir and main_rank and epoch == start_epoch and i == 10:
                 from torch.profiler import ProfilerActivity, profile
 
                 acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -182,7 +244,7 @@ def train(args: Config, device=None):
             writer_train.add(loss=loss_val.cpu().numpy(), metric=metric_val.cpu().numpy())
             if prof is not None and i == 15:
                 prof = _finish_profile(prof, cfg.profile_dir, dev)
-            if i % cfg.log_every == 0:
+            if main_rank and i % cfg.log_every == 0:
                 print(f"epoch {epoch} step {i}/{steps_per_epoch} "
                       f"loss {float(loss):.4f} ({time.time() - t0:.1f}s)")
             t_done = time.perf_counter()
@@ -194,47 +256,53 @@ def train(args: Config, device=None):
         times["load_s"].extend(loader_train.load_s)
         writer_train.update(epoch, None, None)
 
-        save_full = cfg.save_full or epoch == cfg.epochs
-        path = save_checkpoint(cfg.save_dir, epoch, state, cfg, save_full=save_full)
-        print(f"saved {path}")
+        if main_rank:
+            save_full = cfg.save_full or epoch == cfg.epochs
+            path = save_checkpoint(cfg.save_dir, epoch, state, cfg, save_full=save_full)
+            print(f"saved {path}")
+        barrier(mesh)
 
         eval_gen = torch.Generator(device=dev).manual_seed(cfg.seed + epoch)
         writer_val.update(epoch, *_eval_pass(eval_step, loader_val, writer_val, dev,
-                                             eval_gen, times["val_s"]))
+                                             eval_gen, times["val_s"], mesh))
         writer_test.update(epoch, *_eval_pass(eval_step, loader_test, writer_test, dev,
-                                              eval_gen, times["test_s"]))
+                                              eval_gen, times["test_s"], mesh))
     return state
 
 
-def test(args: Config, device=None):
-    """One pass over the test split with per-frame timing."""
-    dev = resolve_device(device)
-    cfg = check_args(args)
-    os.makedirs(cfg.save_dir, exist_ok=True)
+def _test(cfg: Config, dev: torch.device, mesh):
+    main_rank = mesh is None or mesh.is_main
+    if main_rank:
+        os.makedirs(cfg.save_dir, exist_ok=True)
 
+    shard = dict(process_info(), rank_index=mesh.local_rank,
+                 rank_count=mesh.local_size) if mesh else {}
     ds_test = get_data(cfg)(cfg, "test")
     loader = DataLoader(ds_test, cfg.test_batch_size, shuffle=False, num_threads=2,
-                        seed=cfg.seed)
+                        seed=cfg.seed, **shard)
     state = _build_state(cfg, dev, max(1, len(ds_test)))
     if cfg.pretrain:
         restore_state(state, load_checkpoint(cfg.pretrain))
-        print(f"loaded checkpoint {cfg.pretrain}")
+        if main_rank:
+            print(f"loaded checkpoint {cfg.pretrain}")
+    broadcast_module(state.model, mesh)
 
     summary_cls = get_summary(cfg)
     eval_step = make_eval_step(state.model, tta_flip=cfg.tta_flip,
-                               extra_keys=getattr(summary_cls, "SAVE_KEYS", ()))
-    writer = summary_cls(cfg.save_dir, "test", cfg)
+                               extra_keys=getattr(summary_cls, "SAVE_KEYS", ()),
+                               mesh=mesh, gather=True)
+    writer = summary_cls(cfg.save_dir, "test", cfg) if main_rank else _NoWriter()
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
 
     t_total, n, n_seen = 0.0, 0, 0
     for i, batch in enumerate(loader):
         dbatch = _device_batch(batch, dev)
-        bsz = batch["rgb"].shape[0]
         _sync(dev)
         t0 = time.time()
         pred, metric_val, extras = eval_step(dbatch, generator=generator)
         _sync(dev)
         t1 = time.time()
+        bsz = pred.shape[0]  # the host batch
         state.timings["test_s"].append(t1 - t0)
         # the timed region leaves out batch 0 and a ragged last batch
         if i > 0 and bsz == cfg.test_batch_size:
@@ -243,10 +311,10 @@ def test(args: Config, device=None):
         writer.add(metric=metric_val.cpu().numpy())
         if cfg.save_image:
             # save() takes the dataset index of the batch's first sample
-            writer.save(0, n_seen, batch, _host_output(pred, extras))
+            writer.save(0, n_seen, _host_batch(batch, mesh), _host_output(pred, extras))
         n_seen += bsz
     writer.update(0, None, None)
-    if n:
+    if n and main_rank:
         print(f"elapsed time : {t_total:.4f} sec, "
               f"Average processing time : {t_total / n:.4f} sec")
     return state

@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel.mesh import draw_rows
 from ...registry import BACKBONES
 from ..common import BatchNorm2d, conv2d_nhwc, drop_path, layer_norm, linear
 
@@ -279,8 +280,8 @@ class MPViT(nn.Module):
         for blk in enc.MHCA_layers:
             keep = None
             if self.training and blk.drop_path_rate > 0:
-                keep = (torch.rand((2, x.shape[0]), generator=generator, device=x.device)
-                        < 1.0 - blk.drop_path_rate)
+                keep = (draw_rows(torch.rand, (2, x.shape[0]), dim=1, generator=generator,
+                                  device=x.device) < 1.0 - blk.drop_path_rate)
             x = blk(x, enc.cpe, enc.crpe, keep)
         return x
 

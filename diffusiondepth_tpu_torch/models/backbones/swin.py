@@ -43,6 +43,7 @@ import torch.utils.checkpoint
 from ...ops.window_attention import (
     WindowAttentionQKV, window_attention_einsum, window_attention_split,
 )
+from ...parallel.mesh import draw_rows
 from ...registry import BACKBONES
 from ..common import conv2d_nhwc, drop_path, layer_norm, linear
 
@@ -315,8 +316,8 @@ class SwinTransformer(nn.Module):
             return blk(x)
         keep = None
         if blk.drop_path_rate > 0:
-            keep = (torch.rand((2, x.shape[0]), generator=generator, device=x.device)
-                    < 1.0 - blk.drop_path_rate)
+            keep = (draw_rows(torch.rand, (2, x.shape[0]), dim=1, generator=generator,
+                              device=x.device) < 1.0 - blk.drop_path_rate)
         if self.remat and torch.is_grad_enabled():
             return torch.utils.checkpoint.checkpoint(blk, x, keep, use_reentrant=False)
         return blk(x, keep)

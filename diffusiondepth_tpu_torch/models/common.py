@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.layernorm import LayerNormBF16
+from ..parallel.mesh import active_mesh, all_reduce_sum
 
 
 def _dt(dtype: Optional[torch.dtype], *ts: torch.Tensor) -> torch.dtype:
@@ -81,7 +82,10 @@ class BatchNorm2d(nn.Module):
     and var = E[x^2] - E[x]^2, the biased variance, clamped at 0) and
     updates the running statistics by hand with torch momentum 0.1 (flax
     momentum 0.9) from that biased variance; ``F.batch_norm`` would store
-    the unbiased one."""
+    the unbiased one. Under an active data-parallel mesh the statistics are
+    the global batch's, as in JAX's cross-replica BatchNorm: (sum x,
+    sum x^2, count) go through one differentiable all-reduce, in f32, and
+    every rank updates the same running statistics."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -99,8 +103,15 @@ class BatchNorm2d(nn.Module):
         if self.training and not running:
             xf = x.float()
             axes = tuple(range(xf.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if active_mesh() is None:
+                mean = xf.mean(axes)
+                var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            else:
+                c = xf.shape[-1]
+                sums = all_reduce_sum(torch.cat([xf.sum(axes), (xf * xf).sum(axes),
+                                                 xf.new_full((1,), xf.numel() // c)]))
+                mean = sums[:c] / sums[-1]
+                var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)

@@ -27,10 +27,15 @@ BatchNorm statistics, as the JAX head decodes them.
 In training mode the head also computes the self-diffusion ``ddim_loss``:
 noise added to its own refined latent at a random timestep per sample,
 regressed by one denoiser call.
+
+Under an active data-parallel mesh the starting latent, the noise and the
+timesteps are drawn at the global batch's shape and each rank keeps its
+rows (``parallel/mesh.py::draw_rows``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -39,6 +44,7 @@ import torch.nn as nn
 from ...diffusion.ddim import DDIMSchedule
 from ...ops.fused_denoiser import FusedSamplerStep, ddim_step, denoiser_chain
 from ...ops.resize import adaptive_avg_pool2d
+from ...parallel.mesh import draw_rows
 from ...registry import HEADS
 from ..common import ConvBNAct, DeconvBNAct
 from ..depth_transform import build_depth_transform
@@ -118,8 +124,8 @@ class DDIMDepthEstimateHead(nn.Module):
         if init_latent is not None:
             x = init_latent.to(device=dev, dtype=torch.float32).contiguous()
         else:
-            x = torch.randn(latent_shape, generator=generator, device=dev,
-                            dtype=torch.float32)
+            x = draw_rows(torch.randn, latent_shape, generator=generator, device=dev,
+                          dtype=torch.float32)
 
         if self.model.fused_active(latent_shape[1]):  # epsilon prediction, no clipping
             sched = torch.from_numpy(tables.sched()).to(dev)
@@ -163,11 +169,12 @@ class DDIMDepthEstimateHead(nn.Module):
         given (the tests hand both packages the same draws)."""
         b, dev = refined_latent.shape[0], refined_latent.device
         if noise is None:
-            noise = torch.randn(refined_latent.shape, generator=generator, device=dev,
-                                dtype=refined_latent.dtype)
+            noise = draw_rows(torch.randn, refined_latent.shape, generator=generator,
+                              device=dev, dtype=refined_latent.dtype)
         if timesteps is None:
-            timesteps = torch.randint(0, self.schedule.num_train_timesteps, (b,),
-                                      generator=generator, device=dev)
+            timesteps = draw_rows(functools.partial(torch.randint, 0,
+                                                    self.schedule.num_train_timesteps),
+                                  (b,), generator=generator, device=dev)
         noisy = self.schedule.add_noise(refined_latent, noise, timesteps)
         noise_pred = self.model(noisy, timesteps, cond_latent)
         return torch.mean(torch.square(noise_pred.float() - noise.float()))

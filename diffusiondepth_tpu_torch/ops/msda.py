@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.common import linear
+from ..parallel.mesh import draw_rows
 
 
 def bilinear_sample_nhwc(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -129,8 +130,9 @@ def _msda_offset_bias_init(num_heads: int, num_levels: int, num_points: int) -> 
 def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
               device: torch.device) -> torch.Tensor:
     """Dropout's keep mask, each element kept with probability 1 - rate,
-    drawn from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    drawn from ``generator`` (at the global batch's shape under an active
+    data-parallel mesh, this rank's rows kept)."""
+    return draw_rows(torch.rand, shape, generator=generator, device=device) < 1.0 - rate
 
 
 class MultiScaleDeformableAttention(nn.Module):

@@ -7,8 +7,7 @@ metrics over N independent latent seeds must bracket the reference's
 published numbers. This runs the reference's evaluation protocol (its
 ``test()``, src/main.py:404-491: batch ``--test_batch_size``, 1 by
 default, latents sized from gt, optionally ``--inference_steps 50
---tta_flip``) over N seeds on a port checkpoint, on one device, and
-reports mean / std / min / max per metric and, given reference values,
+--tta_flip``) over N seeds on a port checkpoint and reports mean / std / min / max per metric and, given reference values,
 each metric's deviation and the verdict: |mean - ref| <= max(|ref| * rtol,
 2 * std), the seeds' spread standing in for the latent's randomness.
 
@@ -21,6 +20,11 @@ Usage (every flag of ``main`` passes through, plus the harness's):
       --head_specify DDIMDepthEstimate_Swin_ADDHAHI \\
       --parity_seeds 3 --parity_reference BASELINE.json#kitti_swin \\
       [--inference_steps 50 --tta_flip] [--device cpu]
+
+``--mesh_shape data:N`` divides each batch over N ranks, one process per
+device, as ``main`` runs them (``parallel/launch.py``): each metric row is
+the global batch's, as JAX's ``eval_parity`` takes the mesh; the
+batch must divide over the ranks.
 
 Reference values are ``path.json`` holding ``{"RMSE": 0.9801, ...}`` or
 ``path.json#key`` (dots for nested keys) selecting a sub-dict.
@@ -84,21 +88,34 @@ def run_parity_eval(cfg: Config, n_seeds: int = 3,
                     rtol: float = RTOL_DEFAULT, device=None) -> Dict:
     """Evaluate the test split ``n_seeds`` times, seed s drawing its
     latents from a generator seeded ``cfg.seed + 1000 s``, and return the
-    report of ``parity_report``. Runs on the card unless ``device="cpu"``."""
+    report of ``parity_report``. Runs on the card unless ``device="cpu"``,
+    on the ranks that ``cfg.mesh_shape`` asks for (rank 0's report)."""
+    from ..parallel.launch import run_ranks
+
+    return run_ranks(_parity_eval, cfg, device, (n_seeds, reference_metrics, rtol))
+
+
+def _parity_eval(cfg: Config, dev: torch.device, mesh, n_seeds: int,
+                 reference_metrics: Optional[Dict[str, float]], rtol: float) -> Dict:
     from ..data import DataLoader, get as get_data
-    from ..device import resolve_device
     from ..models.diffusion_model import build_model
+    from ..parallel.mesh import broadcast_module, process_info
     from ..training.steps import make_eval_step
     from ..utils.checkpoint import load_checkpoint
 
-    dev = resolve_device(device)
+    main_rank = mesh is None or mesh.is_main
+    shard = dict(process_info(), rank_index=mesh.local_rank,
+                 rank_count=mesh.local_size) if mesh else {}
     ds = get_data(cfg)(cfg, "test")
-    loader = DataLoader(ds, cfg.test_batch_size, shuffle=False, num_threads=2, seed=cfg.seed)
+    loader = DataLoader(ds, cfg.test_batch_size, shuffle=False, num_threads=2, seed=cfg.seed,
+                        **shard)
     model = build_model(cfg, device=dev)
     if cfg.pretrain:
         model.load_state_dict(load_checkpoint(cfg.pretrain)["state_dict"])
-        print(f"loaded checkpoint {cfg.pretrain}")
-    eval_step = make_eval_step(model, tta_flip=cfg.tta_flip)
+        if main_rank:
+            print(f"loaded checkpoint {cfg.pretrain}")
+    broadcast_module(model, mesh)
+    eval_step = make_eval_step(model, tta_flip=cfg.tta_flip, mesh=mesh)
 
     per_seed: List[np.ndarray] = []
     for s in range(n_seeds):
@@ -113,7 +130,8 @@ def run_parity_eval(cfg: Config, n_seeds: int = 3,
         mean_row = np.concatenate(rows, axis=0).mean(axis=0)
         per_seed.append(mean_row)
         line = "  ".join(f"{n}: {v:.4f}" for n, v in zip(METRIC_NAMES, mean_row))
-        print(f"seed {s}: {line}  ({time.time() - t0:.1f}s)")
+        if main_rank:
+            print(f"seed {s}: {line}  ({time.time() - t0:.1f}s)")
 
     protocol = {"n_seeds": n_seeds, "inference_steps": cfg.inference_steps,
                 "tta_flip": cfg.tta_flip, "test_batch_size": cfg.test_batch_size,

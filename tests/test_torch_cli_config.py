@@ -1,7 +1,8 @@
 """The port's configuration and command line against the JAX package's:
 the same ``Config`` fields and defaults, the same flags parsing to the same
-values, the same ``args.json``; ``--mesh_shape`` over one device raises.
-Exact comparisons: no arithmetic is involved."""
+values, the same ``args.json``; a ``--mesh_shape`` over more devices than
+it is given raises, and so does a 'model' axis. Exact comparisons: no
+arithmetic is involved."""
 
 import dataclasses
 import json
@@ -9,6 +10,7 @@ import time
 from pathlib import Path
 
 import pytest
+import torch
 
 from diffusiondepth_tpu import config as jconfig
 from diffusiondepth_tpu_torch import config as pconfig
@@ -98,10 +100,19 @@ def test_args_json_is_json():
 
 @pytest.mark.parametrize("spec", ["data:2", "data:4,model:2", "model:2"])
 def test_mesh_over_one_device_raises(spec):
-    """The port runs on one GPU: a mesh of more devices raises, naming the
-    ROADMAP item that brings multi-GPU, instead of being ignored."""
-    with pytest.raises(NotImplementedError, match="M17"):
-        pconfig.parse_args(["--mesh_shape", spec])
+    """A 'data' mesh parses, and ``create_mesh`` raises when it asks for
+    more devices than it is given, as JAX's ``parse_mesh_shape`` does; a
+    'model' axis of more than one device raises at the command line,
+    naming the tensor-parallel slice, instead of being ignored."""
+    from diffusiondepth_tpu_torch.parallel import create_mesh
+
+    if "model" in spec:
+        with pytest.raises(NotImplementedError, match="tensor parallelism"):
+            pconfig.parse_args(["--mesh_shape", spec])
+    else:
+        assert pconfig.parse_args(["--mesh_shape", spec]).mesh_shape == spec
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+            create_mesh(spec, [torch.device("cpu")])
     assert pconfig.parse_args(["--mesh_shape", "data:1"]).mesh_shape == "data:1"
 
 
