@@ -223,6 +223,31 @@ Phases, one JSON line each:
              main's train at --mesh_shape data:1 (a one-rank NCCL group) on
              an 8-frame KITTI-DC tree against the run with no mesh: logs
              and checkpoint bit for bit, the same launch counts.
+23. tp     - tensor parallelism (parallel/tensor.py): gloo ranks sharing
+             the one card, as phase 22, the state cut by state_sharding at
+             min_size 2**16. (a) model:2, phase 6's recipe (global batch 8
+             = 2 x 4, 352x906, bf16, drop-path 0.1, seed 7240), 1 + 2
+             steps: the first against one process on rank 0 from the same
+             weights, batch and generator seed (loss and row, the whole
+             gradient rebuilt from the shards, BatchNorm statistics, at
+             phase 22's bf16 tolerances; each leaf's change by Adam's
+             first update against one process's, relative L2 weighted by
+             one process's |gradient|, over the leaves of >= 2 dims whose
+             gradient is not float noise, every cut tensor among them:
+             TP_ADAM_STEP_TOL),
+             then step ms, the bytes of each collective kind (the last
+             step synchronises each collective to time it) and peak
+             memory per rank, the train launch counts on every rank, each
+             rank's parameter and Adam elements equal to the sharding's
+             reckoning, and the ranks' whole tensors bit-equal; one served bs8 request on the
+             sharded serve model (no warm-up: its collectives dominate):
+             serve's launch counts per rank, the metric row against the
+             gathered pred (1e-6), the condition features and the first
+             DDIM step's change of the latent against one process
+             (TP_SERVE_TOL), pred against one process (reported: 20 bf16
+             steps amplify the other rounding);
+             (b) data:2,model:2 on four ranks, the same recipe for 1 + 1
+             steps and checks (the second step times its collectives).
 
 Then a line {"kernels": [...]} (each kernel's "dispatch": "op" for the
 four torch.library operators, "direct" for the rest), the run's seconds and, last,
@@ -1894,6 +1919,371 @@ def ddp_phase(port, torch, dev, t_expect, s_expect) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "ddp", "seconds": time.perf_counter() - t_phase,
           "cli_seconds": time.perf_counter() - t0})
+    return {k: r0["train_launches"][-1][k] + r0["eval_launches"][k] for k in t_expect}
+
+
+# ---- phase 23: tensor parallelism (parallel/tensor.py). Gloo ranks share
+# the one card as in phase 22: they show correctness and the ranks' own
+# cost, not NVLink's collectives. JAX's rule at its default min_size
+TP_MIN_SIZE = 2**16
+# Adam's first step against one process's, relative L2 per leaf weighted by
+# |gradient| (tp_step_err): an update left out reads 1, one of the wrong
+# sign 2
+TP_ADAM_STEP_TOL = 0.25
+# a request's condition features and first DDIM step against one process,
+# relative L2: bf16 products on other column counts round otherwise; a
+# wrong gather or shard reads ~1.4
+TP_SERVE_TOL = 5e-2
+TP_PORTS = {"model:2": 29513, "data:2,model:2": 29514}
+
+
+def tp_step_err(after, one_after, before, one_grad) -> dict:
+    """name -> (relative L2 of a leaf's step against one process's,
+    weighted by one process's |gradient|; the same unweighted) for every
+    leaf but the 1-D ones whose gradient is float noise (a bias that
+    BatchNorm follows: below 1e-4 of the largest). Adam's first step is
+    about lr times the gradient's sign, so elements whose gradient is
+    noise around zero take either sign; the weights keep them from
+    deciding the check. A step left out reads 1, one of the wrong sign 2."""
+    floor = 1e-4 * max(g.abs().max().item() for g in one_grad.values())
+    out = {}
+    for n, p in one_after.items():
+        w = one_grad.get(n)
+        w = None if w is None else w.abs()
+        if p.ndim < 2 and w is not None and w.max().item() < floor:
+            continue
+        one = (p - before[n]).float()
+        diff = (after[n] - before[n]).float() - one
+        errs = []
+        for wt in ((1.0 if w is None else w), 1.0):
+            den = (one * wt).norm().item()
+            num = (diff * wt).norm().item()
+            errs.append(num / den if den else (0.0 if num == 0 else math.inf))
+        out[n] = tuple(errs)
+    return out
+
+
+@contextlib.contextmanager
+def tp_first_step(model):
+    """Record a request's condition features (``fpn_condition``'s output)
+    and its first DDIM step's change of the latent (``ddim_step``'s output
+    less its input) in the dict it yields, in f32. The wrapped functions
+    call the originals, whose launch counts stay as they were."""
+    from diffusiondepth_tpu_torch.models.heads import ddim_head
+
+    head, seen = model.depth_head, {}
+    fpn_condition, ddim_step = head.fpn_condition, ddim_head.ddim_step
+
+    def cond(fp):
+        out = fpn_condition(fp)
+        seen.setdefault("cond", out.detach().float().clone())
+        return out
+
+    def step(u6, a3, b3, x, sched):
+        out = ddim_step(u6, a3, b3, x, sched)
+        seen.setdefault("step1", (out - x).detach().float())
+        return out
+
+    head.fpn_condition, ddim_head.ddim_step = cond, step
+    try:
+        yield seen
+    finally:
+        del head.fpn_condition
+        ddim_head.ddim_step = ddim_step
+
+
+def tp_rank(spec: str, steps: int, serve: bool) -> dict:
+    """One rank of phase 23 (run by ``parallel.launch`` on every rank of
+    ``spec``): the flagship training recipe with the state cut by
+    ``state_sharding`` (``steps`` steps, the first against one process on
+    rank 0) and, with ``serve``, a served bs8 request against one process.
+    Returns rank 0's record with every rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    import diffusiondepth_tpu_torch as port
+    from diffusiondepth_tpu_torch.metrics import evaluate_depth_metrics
+    from diffusiondepth_tpu_torch.parallel import (
+        create_mesh, gather_state_dict, shard_batch, shard_state, state_sharding,
+    )
+    from diffusiondepth_tpu_torch.parallel import tensor as tp
+    from diffusiondepth_tpu_torch.parallel.mesh import broadcast_module
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(spec)
+    dev, rank = mesh.device, mesh.rank
+    rec = {"rank": rank, "data_index": mesh.data_index, "model_index": mesh.model_index}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def comm_now():
+        return {k: list(v) for k, v in tp.COMM.items()}
+
+    # ---- (a) the flagship training recipe
+    tcfg = port.Config(**DDP_TRAIN, mesh_shape=spec).finalize()
+    one_cfg = dataclasses.replace(tcfg, mesh_shape=None)
+    model = port.build_model(tcfg, device=dev)
+    broadcast_module(model, mesh)
+    lc = port.LossComputer(tcfg)
+    dgen = gen(1)  # the data: the same host batches on every rank
+
+    def train_batch():
+        gt = (torch.rand(B_T, H_T, W_T, 1, generator=dgen, device=dev) * 80).clamp(0, 88)
+        return {"rgb": torch.randn(B_T, H_T, W_T, 3, generator=dgen, device=dev), "gt": gt}
+
+    batches = [train_batch() for _ in range(steps)]
+    running = {n for n, _ in model.named_buffers() if "running" in n}
+    if rank == 0:  # one process on the whole host batch, the same weights and seed
+        ref = port.build_model(one_cfg, device=dev)
+        ref.load_state_dict(model.state_dict())
+        r_before = {n: p.detach().clone() for n, p in ref.named_parameters()}
+        ref_step = port.make_train_step(ref, lc, port.make_optimizer(one_cfg, 100, ref),
+                                        accum_steps=ACCUM)
+        r_loss, r_row, _ = ref_step(batches[0], gen(DDP_SEED))
+        r_grad = _ddp_flat_grads(torch, ref)
+        r_g = {n: p.grad.detach().float() for n, p in ref.named_parameters()
+               if p.grad is not None}
+        r_stats = {n: b.clone() for n, b in ref.named_buffers() if n in running}
+        r_params = {n: p.detach().clone() for n, p in ref.named_parameters()}
+        del ref, ref_step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    sharding = state_sharding(model, mesh, TP_MIN_SIZE)
+    shard_state(model, sharding)
+    torch.cuda.empty_cache()
+    opt = port.make_optimizer(tcfg, 100, model)
+    step = port.make_train_step(model, lc, opt, accum_steps=ACCUM, mesh=mesh,
+                                state_shardings=sharding)
+    tgen = gen(DDP_SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, comm, launches, rows, timed = [], [], [], [], []
+    for i, batch in enumerate(batches):
+        mine = shard_batch(batch, mesh, ACCUM)
+        sync()
+        dist.barrier()
+        port.reset_launch_counts()
+        tp.reset_comm()
+        # the last step (not the compared first) synchronises each
+        # collective to time it
+        tp.TIMED = 0 < i == steps - 1
+        t0 = time.perf_counter()
+        loss, row, met = step(mine, tgen)
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        timed.append(tp.TIMED)
+        tp.TIMED = False
+        launches.append(dict(port.LAUNCHES))
+        comm.append(comm_now())
+        rows.append(row[0].tolist())
+        if i == 0:  # the step from the reference's weights, made whole
+            wgrads = {n: tp.whole_like(p.grad, p).float() for n, p in model.named_parameters()
+                      if p.grad is not None}
+            grad = torch.cat([g.reshape(-1) for g in wgrads.values()])
+            stats = {n: b.clone() for n, b in model.named_buffers() if n in running}
+            whole = gather_state_dict(model)
+            if rank == 0:
+                rec["loss"] = [loss.item(), r_loss.item()]
+                rec["loss_rel_err"] = abs(loss.item() - r_loss.item()) / abs(r_loss.item())
+                rec["row_rel_err"] = ((row - r_row).abs().max() / r_row.abs().max()).item()
+                rec["grad_rel_l2"] = ((grad - r_grad).norm() / r_grad.norm()).item()
+                rec["stats_rel_err"] = _ddp_max_rel(torch, stats, r_stats)
+                # each leaf's Adam step against one process's (tp_step_err)
+                errs = tp_step_err(whole, r_params, r_before, r_g)
+                held = {n for n, e in errs.items() if r_params[n].ndim >= 2}
+                worst = max(held, key=lambda n: errs[n][0])
+                rec["adam_step_rel_err"] = errs[worst][0]
+                rec["adam_step_worst"] = worst
+                # the worst leaves: (name, weighted, unweighted, the leaf's
+                # largest |gradient| over the model's, its gradient's
+                # relative L2 against one process's)
+                top = max(g.abs().max().item() for g in r_g.values())
+                rec["adam_step_top"] = [
+                    (n, *errs[n], r_g[n].abs().max().item() / top,
+                     ((wgrads[n] - r_g[n]).norm() / r_g[n].norm()).item())
+                    for n in sorted(held & r_g.keys(), key=lambda n: -errs[n][0])[:3]]
+                rec["adam_step_unweighted"] = max(errs[n][1] for n in held)
+                rec["adam_step_rel_err_1d"] = max(
+                    [e[0] for n, e in errs.items() if n not in held], default=0.0)
+                rec["adam_step_all_cut_held"] = set(sharding.sharded) <= held
+                rec["adam_step_cut_smallest_grad"] = min(
+                    (r_g[n].abs().max().item() / top, n) for n in sharding.sharded if n in r_g)
+                del r_grad, r_params, r_before, r_g
+            del grad, wgrads, stats, whole
+    rec.update(step_ms=step_ms, comm=comm, comm_timed=timed, train_launches=launches,
+               loss_rows=rows, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               train_finite=bool(torch.isfinite(row).all() and torch.isfinite(met).all()))
+    # what this rank holds, against the sharding's reckoning
+    rec["local_params"] = sum(p.numel() for p in model.parameters())
+    rec["local_moments"] = sum(v.numel() for st in opt.state.values() for v in st.values()
+                               if torch.is_tensor(v))
+    rec["reckoned_params"] = sharding.local_numel(model)
+    rec["sharded_tensors"] = len(sharding.sharded)
+    rec["whole_params"] = sum(int(math.prod(tp.shard_info(p).whole_shape))
+                              if tp.shard_info(p) else p.numel() for p in model.parameters())
+    rec["sharded_elems"] = sum(int(math.prod(tp.shard_info(p).whole_shape))
+                               for p in model.parameters() if tp.shard_info(p))
+    # every rank's whole tensors (gathered shards, replicated parameters,
+    # buffers) after the updates, bit for bit against rank 0's
+    mismatched = 0
+    with torch.no_grad():
+        for t in gather_state_dict(model).values():
+            mine_t = t.detach().cpu()
+            theirs = mine_t.clone()
+            dist.broadcast(theirs, 0)
+            mismatched += int(not torch.equal(mine_t, theirs))
+    rec["tensors_unlike_rank0"] = mismatched
+    del model, step, opt, batches, mine, loss, row, met
+    torch.cuda.empty_cache()
+
+    # ---- (b) a served request of 8 on the sharded serve model
+    if serve:
+        scfg = port.Config(**DDP_SERVE, mesh_shape=spec).finalize()
+        smodel = port.build_model(scfg, device=dev)
+        broadcast_module(smodel, mesh)
+        rgen = gen(scfg.seed)
+        rgb = torch.randn(B, H_IMG, W_IMG, 3, generator=rgen, device=dev)
+        depth = torch.rand(B, H_IMG, W_IMG, 1, generator=rgen, device=dev) * 79 + 1
+        req = {"rgb": rgb, "gt": depth * (torch.rand(B, H_IMG, W_IMG, 1, generator=rgen,
+                                                      device=dev) < 0.3)}
+        if rank == 0:
+            one = port.make_eval_step(smodel)
+            with tp_first_step(smodel) as one_seen:
+                p8, m8, _ = one(req, generator=gen(DDP_SEED))
+            del one
+        shard_state(smodel, state_sharding(smodel, mesh, TP_MIN_SIZE))
+        torch.cuda.empty_cache()
+        # one request, no warm-up: its collectives (~95% of it) leave a first
+        # call's own cost in the noise
+        estep = port.make_eval_step(smodel, mesh=mesh, gather=True)
+        sync()
+        dist.barrier()
+        port.reset_launch_counts()
+        tp.reset_comm()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with tp_first_step(smodel) as seen:
+            pred, met, _ = estep(shard_batch(req, mesh), generator=gen(DDP_SEED))
+        sync()
+        rec["eval_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["eval_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rec["eval_launches"] = dict(port.LAUNCHES)
+        rec["eval_comm"] = comm_now()
+        rec["eval_metric"] = met[0].tolist()
+        rec["metric_vs_gathered"] = ((met - evaluate_depth_metrics(req, {"pred": pred})).abs()
+                                     .max() / met.abs().max()).item()
+        if rank == 0:
+            for key in ("cond", "step1"):
+                rec[f"{key}_rel_l2_one_process"] = ((seen[key] - one_seen[key]).norm()
+                                                    / one_seen[key].norm()).item()
+            del one_seen
+            rec["pred_rel_err_one_process"] = ((pred - p8).abs().max() / p8.abs().max()).item()
+            rec["metric_rel_err_one_process"] = ((met - m8).abs().max()
+                                                 / m8.abs().max()).item()
+            rec["pred_shape"] = list(pred.shape)
+            rec["pred_finite"] = bool(torch.isfinite(pred).all())
+        del smodel, estep, pred, req, seen
+        torch.cuda.empty_cache()
+    gathered = [None] * mesh.world_size
+    dist.all_gather_object(gathered, rec)
+    return {"ranks": gathered}
+
+
+def tp_phase(port, torch, dev, t_expect, s_expect) -> dict:
+    """Phase 23: ``tp_rank`` on two gloo ranks at model:2 (3 steps and a
+    request) and on four at data:2,model:2 (2 steps), all on the one card,
+    held to their checks. Returns rank 0's launch counts of one model:2
+    training step and one request."""
+    from diffusiondepth_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for spec, n, steps, serve in (("model:2", 2, 3, True), ("data:2,model:2", 4, 2, False)):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        res = launch(tp_rank, [dev] * n, TP_PORTS[spec], (spec, steps, serve))
+        ranks = res["ranks"]
+        r0 = ranks[0]
+        rec = {"phase": "tp", "mesh": spec, "ranks": n,
+               "what": f"{n} gloo ranks on one card through parallel.launch: correctness and "
+                       "the ranks' own cost, not NVLink",
+               "config": f"phase 6's recipe (global batch 8 = 2 x 4, 352x906, bf16, drop-path "
+                         f"0.1, seed 7240), state_sharding min_size {TP_MIN_SIZE}",
+               "loss": r0["loss"], "loss_rel_err": r0["loss_rel_err"],
+               "row_rel_err": r0["row_rel_err"], "grad_rel_l2": r0["grad_rel_l2"],
+               "stats_rel_err": r0["stats_rel_err"],
+               "adam_step_rel_err": r0["adam_step_rel_err"],
+               "adam_step_worst_leaf": r0["adam_step_worst"],
+               "adam_step_unweighted": r0["adam_step_unweighted"],
+               "adam_step_cut_smallest_grad": r0["adam_step_cut_smallest_grad"],
+               "adam_step_top": r0["adam_step_top"],
+               "adam_step_rel_err_1d_leaves": r0["adam_step_rel_err_1d"],
+               "tols": [DDP_BF16_LOSS_TOL, DDP_BF16_GRAD_TOL, DDP_BF16_STATS_TOL,
+                        TP_ADAM_STEP_TOL],
+               "step_ms_by_rank": [r["step_ms"] for r in ranks],
+               "comm_timed_steps": r0["comm_timed"],
+               "comm_by_rank": [r["comm"] for r in ranks],
+               "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+               "sharded_tensors": r0["sharded_tensors"], "whole_params": r0["whole_params"],
+               "sharded_params": r0["sharded_elems"],
+               "local_params_by_rank": [r["local_params"] for r in ranks],
+               "local_moments_by_rank": [r["local_moments"] for r in ranks],
+               "loss_rows": r0["loss_rows"], "launches_per_step": r0["train_launches"][-1],
+               "seconds": time.perf_counter() - t0}
+        if serve:
+            rec["serve"] = {"batch": B, "eval_ms_by_rank": [r["eval_ms"] for r in ranks],
+                            "peak_gb_by_rank": [r["eval_peak_gb"] for r in ranks],
+                            "comm_by_rank": [r["eval_comm"] for r in ranks],
+                            "metric_row": r0["eval_metric"],
+                            "cond_rel_l2_one_process": r0["cond_rel_l2_one_process"],
+                            "step1_rel_l2_one_process": r0["step1_rel_l2_one_process"],
+                            "tol": TP_SERVE_TOL,
+                            "pred_rel_err_one_process": r0["pred_rel_err_one_process"],
+                            "metric_rel_err_one_process": r0["metric_rel_err_one_process"],
+                            "launches_per_request": r0["eval_launches"]}
+        emit(rec)  # before the checks: a failed check still shows the numbers
+        for r in ranks:
+            who = f"tp {spec} rank {r['rank']}"
+            for i, got in enumerate(r["train_launches"]):
+                check(got == t_expect, f"{who} step {i} launches {got} != {t_expect}")
+            check(r["tensors_unlike_rank0"] == 0,
+                  f"{who}: {r['tensors_unlike_rank0']} whole tensors differ from rank 0's")
+            check(r["train_finite"], f"{who}: non-finite loss or metric row")
+            check(r["local_params"] == r["reckoned_params"]
+                  and r["local_moments"] == 2 * r["reckoned_params"],
+                  f"{who}: holds {r['local_params']} parameter and {r['local_moments']} "
+                  f"moment elements, reckoned {r['reckoned_params']}")
+            check(r["local_params"] < r["whole_params"], f"{who}: nothing was cut")
+            if serve:
+                check(r["eval_launches"] == s_expect,
+                      f"{who} request launches {r['eval_launches']} != {s_expect}")
+                check(r["metric_vs_gathered"] <= 1e-6,
+                      f"{who} metric row: {r['metric_vs_gathered']}")
+        check(r0["loss_rel_err"] <= DDP_BF16_LOSS_TOL and r0["row_rel_err"] <= DDP_BF16_LOSS_TOL,
+              f"tp {spec} loss {r0['loss']} rel err {r0['loss_rel_err']}, row "
+              f"{r0['row_rel_err']}")
+        check(r0["grad_rel_l2"] <= DDP_BF16_GRAD_TOL,
+              f"tp {spec} gradient rel L2 {r0['grad_rel_l2']}")
+        check(r0["stats_rel_err"] <= DDP_BF16_STATS_TOL,
+              f"tp {spec} BatchNorm statistics rel err {r0['stats_rel_err']}")
+        check(r0["adam_step_all_cut_held"] and r0["adam_step_rel_err"] <= TP_ADAM_STEP_TOL,
+              f"tp {spec} Adam's first step against one process: {r0['adam_step_rel_err']} "
+              f"({r0['adam_step_worst']}; every cut tensor held: "
+              f"{r0['adam_step_all_cut_held']})")
+        if serve:
+            check(r0["pred_finite"] and r0["pred_shape"] == [B, H_IMG, W_IMG, 1],
+                  f"tp {spec} pred {r0['pred_shape']}")
+            for key in ("cond", "step1"):
+                got = r0[f"{key}_rel_l2_one_process"]
+                check(got <= TP_SERVE_TOL, f"tp {spec} request {key} against one process: {got}")
+        out[spec] = r0
+    emit({"phase": "tp", "seconds": time.perf_counter() - t_phase})
+    r0 = out["model:2"]
     return {k: r0["train_launches"][-1][k] + r0["eval_launches"][k] for k in t_expect}
 
 
@@ -3736,6 +4126,13 @@ def main() -> int:
         # ---- 22. data parallelism: two ranks of the flagship's training step
         # and of a served request on the one card, and main at data:1
         path_launches["ddp"] = ddp_phase(port, torch, dev, t_expect, {
+            "conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk,
+            **{k: 0 for k in port.LAUNCHES if k not in ("conv_link", "ddim_step",
+                                                      "window_attention")}})
+
+        # ---- 23. tensor parallelism: the flagship's training step and a
+        # served request with the state cut over 'model', on the one card
+        path_launches["tp"] = tp_phase(port, torch, dev, t_expect, {
             "conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk,
             **{k: 0 for k in port.LAUNCHES if k not in ("conv_link", "ddim_step",
                                                       "window_attention")}})

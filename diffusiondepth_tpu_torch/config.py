@@ -4,12 +4,11 @@ reference CLI's flags and the JAX package's extensions), so that one set of
 flags and one ``args.json`` describe a run in both packages. The port keeps
 its own copy: it imports nothing of the JAX package.
 
-Two differences: ``compute_dtype`` is a torch dtype, and ``finalize``
-raises for a ``mesh_shape`` with a 'model' axis of more than one device
-(tensor parallelism is not ported; a 'data' axis is checked against the
-devices by ``parallel.create_mesh``, as JAX checks it). The module has no
-side effects: build configs with ``Config()``,
-``parse_args(argv)`` or ``Config.from_dict(...)``.
+One difference: ``compute_dtype`` is a torch dtype. A ``mesh_shape``
+('data' and 'model' axes) is checked against the devices by
+``parallel.create_mesh``, as JAX checks it. The module has no side
+effects: build configs with ``Config()``, ``parse_args(argv)`` or
+``Config.from_dict(...)``.
 """
 
 from __future__ import annotations
@@ -172,11 +171,6 @@ class Config:
             self.save_dir = "../experiments/" + current_time + self.save
         if self.dtype is None:
             self.dtype = "float32" if self.opt_level == "O0" else "bfloat16"
-        if mesh_axes(self.mesh_shape).get("model", 1) > 1:
-            raise NotImplementedError(
-                f"--mesh_shape {self.mesh_shape}: tensor parallelism over a 'model' axis "
-                "(JAX's state_sharding) is not ported yet: ROADMAP, 'The port slices left', "
-                "item 1")
         return self
 
     @property

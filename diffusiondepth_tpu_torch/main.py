@@ -24,9 +24,12 @@ Ranks (``parallel/``): ``--mesh_shape data:N`` runs N data-parallel ranks,
 one process per device, as JAX's ``data`` axis and the reference's
 ``mp.spawn``: with no launcher environment ``main`` spawns them and they
 meet at ``localhost:--port``; under ``torchrun``'s environment each joins
-that group. With no ``--mesh_shape`` the run takes every visible card
-(one process without a group where there is one card); on the CPU it is
-one process. A ``data:1`` mesh runs in this process as a one-rank group.
+that group. ``data:D,model:K`` (or ``model:K``) runs D x K ranks as JAX's
+``main`` does: the batch is split over 'data' only and the state stays
+replicated (``main`` calls no ``state_sharding``), so the ranks of a model
+group repeat each other's work and the run computes the ``data:D`` one.
+With no ``--mesh_shape`` the run takes every visible card (one process
+without a group where there is one card); on the CPU it is one process. A ``data:1`` mesh runs in this process as a one-rank group.
 ``--batch_size`` is the batch of one host; each rank loads and steps on
 its rows. Rank 0 alone prints the logs and writes ``args.json``, the
 source backup, the summaries, the checkpoints (a barrier follows each)
@@ -113,9 +116,9 @@ def _host_output(pred: torch.Tensor, extras: Dict[str, torch.Tensor]) -> Dict[st
 
 
 def _host_batch(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
-    """Every rank's rows of a loader batch, in rank order: the host batch
-    (the batch itself without a mesh)."""
-    if mesh is None or mesh.world_size == 1:
+    """Every data rank's rows of a loader batch, in data order: the host
+    batch (the batch itself without a data-parallel mesh)."""
+    if mesh is None or mesh.data_size == 1:
         return batch
     out = {}
     for k, v in batch.items():
@@ -184,8 +187,8 @@ def _train(cfg: Config, dev: torch.device, mesh):
         print(f"device: {dev} ({name})" + (f" | mesh: {mesh.axes}" if mesh else ""))
 
     # the host's shard of the dataset and this rank's rows of each batch
-    shard = dict(process_info(), rank_index=mesh.local_rank,
-                 rank_count=mesh.local_size) if mesh else {}
+    shard = dict(process_info(), rank_index=mesh.loader_index,
+                 rank_count=mesh.loader_count) if mesh else {}
     data_cls = get_data(cfg)
     ds_train, ds_val, ds_test = (data_cls(cfg, m) for m in ("train", "val", "test"))
     loader_train = DataLoader(ds_train, cfg.batch_size, shuffle=True, drop_last=True,
@@ -275,8 +278,8 @@ def _test(cfg: Config, dev: torch.device, mesh):
     if main_rank:
         os.makedirs(cfg.save_dir, exist_ok=True)
 
-    shard = dict(process_info(), rank_index=mesh.local_rank,
-                 rank_count=mesh.local_size) if mesh else {}
+    shard = dict(process_info(), rank_index=mesh.loader_index,
+                 rank_count=mesh.loader_count) if mesh else {}
     ds_test = get_data(cfg)(cfg, "test")
     loader = DataLoader(ds_test, cfg.test_batch_size, shuffle=False, num_threads=2,
                         seed=cfg.seed, **shard)

@@ -17,11 +17,18 @@ for a TPU):
   compute type, softmax in f32).
 
 Training mode adds drop-path (rate ``linspace(0, drop_path_rate, depth)``
-over the blocks) and, with ``remat``, per-block rematerialisation with
-``torch.utils.checkpoint``. The checkpoint restores the global RNG, not an
-explicit ``torch.Generator``, so each block's drop-path masks are drawn
-before the checkpointed call and passed in: the recompute uses the same
-masks.
+over the blocks), JAX's dropouts where their rates are above 0
+(``attn_drop_rate`` on the attention probabilities, ``drop_rate`` after
+the patch embedding, on the attention projection and after both FFN
+Linears; every shipped config has 0) and, with ``remat``, per-block
+rematerialisation with ``torch.utils.checkpoint``. The checkpoint restores
+the global RNG, not an explicit ``torch.Generator``, so each block's
+drop-path and dropout masks are drawn before the checkpointed call and
+passed in: the recompute uses the same masks. With ``attn_drop_rate > 0``
+a training call takes the einsum path, as JAX routes around its fused
+kernel (``attn_drop_fallback``): K4/K7 have no dropout. The masks are the
+port's draws (``draw_rows`` from the caller's generator); JAX's dropout
+bits come from its own key splits and are not reproduced.
 
 Known details kept from the reference: the block pads after ``norm1`` (the
 padded tokens are zeros), the shift is a roll by -shift before attention and
@@ -32,6 +39,7 @@ channel-slowest (nn.Unfold order).
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,8 +52,17 @@ from ...ops.window_attention import (
     WindowAttentionQKV, window_attention_einsum, window_attention_split,
 )
 from ...parallel.mesh import draw_rows
+from ...parallel.tensor import whole
 from ...registry import BACKBONES
-from ..common import conv2d_nhwc, drop_path, layer_norm, linear
+from ..common import conv2d_nhwc, drop_path, dropout, layer_norm, linear
+
+_WARNED = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(msg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,8 +126,11 @@ def window_reverse(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor
 class WindowMSA(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int, window_size: int = 7,
                  dtype: Optional[torch.dtype] = None, use_pallas: bool = False,
-                 fused_qkv_attention: bool = True):
+                 fused_qkv_attention: bool = True, attn_drop_rate: float = 0.0,
+                 proj_drop_rate: float = 0.0):
         super().__init__()
+        self.attn_drop_rate = attn_drop_rate
+        self.proj_drop_rate = proj_drop_rate
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.window_size = window_size
@@ -128,32 +148,46 @@ class WindowMSA(nn.Module):
             torch.from_numpy(relative_position_index(window_size, window_size).reshape(-1)),
             persistent=False)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """x (B, nW, N, C) window-major; mask (nW, N, N) f32 or None."""
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                drops: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """x (B, nW, N, C) window-major; mask (nW, N, N) f32 or None;
+        ``drops``: the keep masks of the attention dropout ("attn", (B, nW,
+        heads, N, N)) and the projection's ("proj", (B, nW, N, C)), in
+        training where their rates are above 0."""
         b, nw, n, c = x.shape
+        drops = drops or {}
+        attn_keep = drops.get("attn")
         qkv = linear(x, self.qkv, self.dtype)
-        bias = self.relative_position_bias_table[self.relative_position_index]
+        bias = whole(self.relative_position_bias_table)[self.relative_position_index]
         bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
-        if self.fused_qkv_attention and not self.use_pallas:
+        fused = self.fused_qkv_attention and not self.use_pallas
+        if fused and attn_keep is not None:
+            _warn_once("attn_drop_fallback",
+                       "attn_drop_rate > 0 disables the fused window-attention training "
+                       "kernel; this training run uses the einsum attention path")
+        if fused and attn_keep is None:
             out = WindowAttentionQKV.apply(qkv.contiguous(), bias, mask, self.scale,
                                            self.num_heads)
-            return linear(out, self.proj, self.dtype)
-        if self.use_pallas and not self.training:
+        elif self.use_pallas and not self.training:
             q, k, v = (t.permute(0, 1, 3, 2, 4).contiguous() for t in
                        qkv.reshape(b, nw, n, 3, self.num_heads, c // self.num_heads).unbind(3))
             out = window_attention_split(q, k, v, bias, mask, self.scale)
             out = out.permute(0, 1, 3, 2, 4).reshape(b, nw, n, c)
         else:
-            out = window_attention_einsum(qkv, bias, mask, self.scale, self.num_heads)
-        return linear(out, self.proj, self.dtype)
+            out = window_attention_einsum(qkv, bias, mask, self.scale, self.num_heads,
+                                          attn_keep, self.attn_drop_rate)
+        out = linear(out, self.proj, self.dtype)
+        if drops.get("proj") is not None:
+            out = dropout(out, drops["proj"], self.proj_drop_rate)
+        return out
 
 
 class ShiftWindowMSA(nn.Module):
     def __init__(self, embed_dims, num_heads, window_size, dtype, use_pallas,
-                 fused_qkv_attention):
+                 fused_qkv_attention, attn_drop_rate=0.0, proj_drop_rate=0.0):
         super().__init__()
         self.w_msa = WindowMSA(embed_dims, num_heads, window_size, dtype, use_pallas,
-                               fused_qkv_attention)
+                               fused_qkv_attention, attn_drop_rate, proj_drop_rate)
 
 
 class FFN(nn.Module):
@@ -169,15 +203,19 @@ class SwinBlock(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int, feedforward_channels: int,
                  window_size: int = 7, shift: bool = False,
                  dtype: Optional[torch.dtype] = None, use_pallas: bool = False,
-                 fused_qkv_attention: bool = True):
+                 fused_qkv_attention: bool = True, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0):
         super().__init__()
         self.drop_path_rate = 0.0  # training only; SwinTransformer sets it
+        self.drop_rate = drop_rate
+        self.attn_drop_rate = attn_drop_rate
+        self.num_heads = num_heads
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(embed_dims, eps=1e-5)
         self.attn = ShiftWindowMSA(embed_dims, num_heads, window_size, dtype, use_pallas,
-                                   fused_qkv_attention)
+                                   fused_qkv_attention, attn_drop_rate, drop_rate)
         self.norm2 = nn.LayerNorm(embed_dims, eps=1e-5)
         self.ffn = FFN(embed_dims, feedforward_channels)
         self._masks: Dict[Tuple, torch.Tensor] = {}
@@ -195,9 +233,37 @@ class SwinBlock(nn.Module):
             self._masks[key] = mask
         return mask
 
-    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def draw_dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]
+                     ) -> Optional[Dict[str, torch.Tensor]]:
+        """The keep masks of this block's dropouts on an input of ``x``'s
+        shape, drawn from ``generator`` (this rank's rows of the global
+        batch's draw): "attn" (B, nW, heads, N, N) at ``attn_drop_rate``,
+        "proj" (B, nW, N, C), "ffn1" (B, H, W, hidden) and "ffn2" (B, H, W,
+        C) at ``drop_rate``; None where both rates are 0."""
+        if self.attn_drop_rate <= 0 and self.drop_rate <= 0:
+            return None
+        b, h, w, c = x.shape
+        ws = self.window_size
+        nw = -(-h // ws) * -(-w // ws)
+
+        def keep(shape, rate):
+            return draw_rows(torch.rand, shape, generator=generator, device=x.device) < 1.0 - rate
+
+        out = {}
+        if self.attn_drop_rate > 0:
+            out["attn"] = keep((b, nw, self.num_heads, ws * ws, ws * ws), self.attn_drop_rate)
+        if self.drop_rate > 0:
+            out["proj"] = keep((b, nw, ws * ws, c), self.drop_rate)
+            out["ffn1"] = keep((b, h, w, self.ffn.layers[0][0].out_features), self.drop_rate)
+            out["ffn2"] = keep((b, h, w, c), self.drop_rate)
+        return out
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                drops: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """``keep``: (2, B) bool drop-path masks of the attention and FFN
-        branches, or None for no drop-path."""
+        branches, or None for no drop-path; ``drops``: the dropout masks of
+        ``draw_dropout``, or None for no dropout."""
+        drops = drops or {}
         b, h, w, c = x.shape
         ws = self.window_size
         shortcut = x
@@ -211,7 +277,7 @@ class SwinBlock(nn.Module):
         if self.shift:
             y = torch.roll(y, (-self.shift, -self.shift), dims=(1, 2))
             mask = self._mask(h_pad, w_pad, y.device)
-        y = self.attn.w_msa(window_partition(y, ws), mask)
+        y = self.attn.w_msa(window_partition(y, ws), mask, drops)
         y = window_reverse(y, ws, h_pad, w_pad)
         if self.shift:
             y = torch.roll(y, (self.shift, self.shift), dims=(1, 2))
@@ -224,7 +290,11 @@ class SwinBlock(nn.Module):
         fc1, fc2 = self.ffn.layers[0][0], self.ffn.layers[1]
         y = layer_norm(x, self.norm2, self.dtype)
         y = F.gelu(linear(y, fc1, self.dtype))
+        if "ffn1" in drops:
+            y = dropout(y, drops["ffn1"], self.drop_rate)
         y = linear(y, fc2, self.dtype)
+        if "ffn2" in drops:
+            y = dropout(y, drops["ffn2"], self.drop_rate)
         if keep is not None:
             y = drop_path(y, keep[1], self.drop_path_rate)
         return x + y
@@ -281,17 +351,20 @@ class SwinTransformer(nn.Module):
     activation checkpointing. Training: drop-path at
     ``linspace(0, drop_path_rate, total depth)`` (masks from the caller's
     generator) and, with ``remat`` and under grad, each block
-    rematerialised in the backward. Dropout rates are 0, as in the shipped
-    configs. ``use_pallas`` and ``fused_qkv_attention`` choose the window
-    attention (module docstring)."""
+    rematerialised in the backward. ``drop_rate`` and ``attn_drop_rate`` are
+    JAX's dropouts (module docstring), 0 in the shipped configs.
+    ``use_pallas`` and ``fused_qkv_attention`` choose the window attention
+    (module docstring)."""
 
     def __init__(self, embed_dims: int = 96, patch_size: int = 4, window_size: int = 7,
                  mlp_ratio: int = 4, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), drop_path_rate: float = 0.1,
                  remat: bool = True, use_pallas: bool = False,
-                 fused_qkv_attention: bool = True, dtype: Optional[torch.dtype] = None):
+                 fused_qkv_attention: bool = True, dtype: Optional[torch.dtype] = None,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.remat = remat
         self.patch_embed = PatchEmbed(embed_dims, patch_size, dtype)
         stages = []
@@ -299,7 +372,8 @@ class SwinTransformer(nn.Module):
         for i, (depth, heads) in enumerate(zip(depths, num_heads)):
             blocks = [SwinBlock(dims, heads, mlp_ratio * dims, window_size,
                                 shift=(j % 2 == 1), dtype=dtype, use_pallas=use_pallas,
-                                fused_qkv_attention=fused_qkv_attention)
+                                fused_qkv_attention=fused_qkv_attention,
+                                drop_rate=drop_rate, attn_drop_rate=attn_drop_rate)
                       for j in range(depth)]
             down = PatchMerging(dims, 2 * dims, dtype) if i < len(depths) - 1 else None
             stages.append(SwinStage(blocks, down))
@@ -318,12 +392,16 @@ class SwinTransformer(nn.Module):
         if blk.drop_path_rate > 0:
             keep = (draw_rows(torch.rand, (2, x.shape[0]), dim=1, generator=generator,
                               device=x.device) < 1.0 - blk.drop_path_rate)
+        drops = blk.draw_dropout(x, generator)
         if self.remat and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(blk, x, keep, use_reentrant=False)
-        return blk(x, keep)
+            return torch.utils.checkpoint.checkpoint(blk, x, keep, drops, use_reentrant=False)
+        return blk(x, keep, drops)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         x = self.patch_embed(x)
+        if self.training and self.drop_rate > 0:
+            x = dropout(x, draw_rows(torch.rand, x.shape, generator=generator, device=x.device)
+                        < 1.0 - self.drop_rate, self.drop_rate)
         outs = []
         for i, stage in enumerate(self.stages):
             for blk in stage.blocks:

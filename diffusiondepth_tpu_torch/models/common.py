@@ -6,6 +6,12 @@ with ``dtype=torch.bfloat16`` casts its input and parameters to bf16 for the
 product and adds the bias in bf16, as flax modules do under the bf16
 policy; normalisations compute their statistics in f32.
 
+``conv2d_nhwc`` (``groups == 1``), ``conv_transpose2d_nhwc`` and
+``linear`` are column-parallel where their weight is a shard of a
+tensor-parallel state (``parallel/tensor.py``): each rank computes its
+output features, which are gathered along the last dim before the bias is
+added; a grouped conv takes its weight whole.
+
 ``BatchNorm2d`` uses its running statistics in eval mode and the batch
 statistics in training mode. ``LayerNorm`` is the JAX package's opt-in
 LayerNorm module, whose bf16 branch runs the kernels K9/K10.
@@ -20,7 +26,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.layernorm import LayerNormBF16
-from ..parallel.mesh import active_mesh, all_reduce_sum
+from ..parallel.mesh import all_reduce_sum, data_mesh
+from ..parallel.tensor import copy_to_model, gather_from_model, shard_info, whole
 
 
 def _dt(dtype: Optional[torch.dtype], *ts: torch.Tensor) -> torch.dtype:
@@ -32,12 +39,28 @@ def _dt(dtype: Optional[torch.dtype], *ts: torch.Tensor) -> torch.dtype:
     return out
 
 
+def _column_parallel(x: torch.Tensor, weight: torch.Tensor, dt: torch.dtype, product):
+    """``product(x, w)`` (an NHWC or (..., features) output) with ``weight``
+    whole, or, where it is a shard, this rank's output features gathered
+    over the model group."""
+    sh = shard_info(weight)
+    if sh is None:
+        return product(x.to(dt), weight.to(dt))
+    return gather_from_model(product(copy_to_model(x.to(dt), sh), weight.to(dt)), sh)
+
+
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                 stride: int = 1, padding: int = 0,
                 dtype: Optional[torch.dtype] = None, groups: int = 1) -> torch.Tensor:
     dt = _dt(dtype, x, weight)
-    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), weight.to(dt), None, stride, padding, 1, groups)
-    y = y.permute(0, 2, 3, 1)
+    if groups > 1:
+        weight = whole(weight)
+
+    def product(xt, w):
+        y = F.conv2d(xt.permute(0, 3, 1, 2), w, None, stride, padding, 1, groups)
+        return y.permute(0, 2, 3, 1)
+
+    y = _column_parallel(x, weight, dt, product)
     if bias is not None:
         y = y + bias.to(dt)
     return y
@@ -48,9 +71,13 @@ def conv_transpose2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                           padding: int, output_padding: int,
                           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     dt = _dt(dtype, x, weight)
-    y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), weight.to(dt), None,
-                           stride, padding, output_padding)
-    y = y.permute(0, 2, 3, 1)
+
+    def product(xt, w):
+        y = F.conv_transpose2d(xt.permute(0, 3, 1, 2), w, None, stride, padding,
+                               output_padding)
+        return y.permute(0, 2, 3, 1)
+
+    y = _column_parallel(x, weight, dt, product)
     if bias is not None:
         y = y + bias.to(dt)
     return y
@@ -58,8 +85,11 @@ def conv_transpose2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: Optional[torch.dtype]) -> torch.Tensor:
     dt = _dt(dtype, x, lin.weight)
-    return F.linear(x.to(dt), lin.weight.to(dt),
-                    None if lin.bias is None else lin.bias.to(dt))
+    if shard_info(lin.weight) is None:
+        return F.linear(x.to(dt), lin.weight.to(dt),
+                        None if lin.bias is None else lin.bias.to(dt))
+    y = _column_parallel(x, lin.weight, dt, F.linear)
+    return y if lin.bias is None else y + lin.bias.to(dt)
 
 
 def act_fn(x: torch.Tensor, name: Optional[str], negative_slope: float = 0.2) -> torch.Tensor:
@@ -103,7 +133,7 @@ class BatchNorm2d(nn.Module):
         if self.training and not running:
             xf = x.float()
             axes = tuple(range(xf.ndim - 1))
-            if active_mesh() is None:
+            if data_mesh() is None:
                 mean = xf.mean(axes)
                 var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
             else:
@@ -121,6 +151,12 @@ class BatchNorm2d(nn.Module):
         y = xf - mean
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (y * mul + self.bias).to(_dt(dtype, x))
+
+
+def dropout(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax's ``Dropout`` with a drawn ``keep_mask`` of ``x``'s shape: the
+    kept elements scaled by 1 / (1 - rate) in ``x``'s type, the rest 0."""
+    return torch.where(keep_mask, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def drop_path(x: torch.Tensor, keep_mask: torch.Tensor, rate: float) -> torch.Tensor:

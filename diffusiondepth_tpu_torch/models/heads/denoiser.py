@@ -34,6 +34,7 @@ from ...ops.fused_denoiser import (
     CHAIN_KEYS, CONV_KEYS, FusedDenoiser, chain_params_from_flat,
 )
 from ...ops.resize import resize_bilinear
+from ...parallel.tensor import whole
 from ..common import conv2d_nhwc, group_norm_nhwc
 
 
@@ -92,7 +93,7 @@ class ScheduledCNNRefine(nn.Module):
         """The embedding rows of timestep(s) ``t``. A gather, not ``w[t]``:
         indexing with a 0-d tensor reads its value on the host (a sync per
         step on the card, a data-dependent size under ``torch.export``)."""
-        w = self.time_embedding.weight
+        w = whole(self.time_embedding.weight)
         idx = torch.as_tensor(t, device=w.device)
         te = w.index_select(0, idx.reshape(-1))
         te = te[0] if idx.ndim == 0 else te
@@ -101,7 +102,8 @@ class ScheduledCNNRefine(nn.Module):
     def chain_flat(self) -> List[torch.Tensor]:
         """The chain's f32 parameters in ``CHAIN_KEYS`` order, (weight,
         bias) each, conv weights as (3, 3, Cin, Cout): the leaves the
-        autograd Functions take."""
+        autograd Functions take. A weight cut over 'model' is gathered
+        whole (``parallel.whole``): K1 and K5 take whole channel sets."""
         ne, pr = self.noise_embedding, self.pred
         mods = {"ne0": ne[0], "gn0": ne[1], "ne1": ne[3], "gn1": ne[4],
                 "fa": self.upsample_add.convA.conv, "fb": self.upsample_add.convB.conv,
@@ -109,7 +111,8 @@ class ScheduledCNNRefine(nn.Module):
         flat = []
         for k in CHAIN_KEYS:
             m = mods[k]
-            w = m.weight.permute(2, 3, 1, 0).contiguous() if k in CONV_KEYS else m.weight
+            w = whole(m.weight)
+            w = w.permute(2, 3, 1, 0).contiguous() if k in CONV_KEYS else w
             flat += [w, m.bias]
         return flat
 

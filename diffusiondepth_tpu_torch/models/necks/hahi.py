@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.msda import MultiScaleDeformableAttention
+from ...parallel.tensor import whole
 from ..common import BatchNorm2d, conv2d_nhwc, linear
 from .positional_encoding import SinePositionalEncoding, TensorCache
 
@@ -108,7 +109,8 @@ class HAHIHeteroNeck(nn.Module):
         plus its ``level_embed`` row, each token's reference point its
         centre on every level."""
         dt, dev = src.dtype, src.device
-        pos = torch.cat([self.positional_encoding.table(h, w, dev, dt) + self.level_embed[i].to(dt)
+        level_embed = whole(self.level_embed)
+        pos = torch.cat([self.positional_encoding.table(h, w, dev, dt) + level_embed[i].to(dt)
                          for i, (h, w) in enumerate(shapes)], 1)
         ref = self._reference_points(tuple(shapes), lambda: _grid_reference_points(shapes),
                                      dev, dt)

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.msda import MultiScaleDeformableAttention
+from ...parallel.tensor import whole
 from ..common import layer_norm, linear
 from .hahi import _grid_reference_points
 from .positional_encoding import SinePositionalEncoding, TensorCache
@@ -120,8 +121,9 @@ class PureMSDEnTransformer(nn.Module):
         shapes: List[Tuple[int, int]] = [(f.shape[1], f.shape[2]) for f in mlvl_feats]
         dt, dev = mlvl_feats[0].dtype, mlvl_feats[0].device
         src = torch.cat([f.reshape(b, -1, e) for f in mlvl_feats], 1)
+        level_embeds = whole(self.level_embeds)
         pos = torch.cat([self.positional_encoding.table(h, w, dev, f.dtype)
-                         + self.level_embeds[i].to(f.dtype)
+                         + level_embeds[i].to(f.dtype)
                          for i, ((h, w), f) in enumerate(zip(shapes, mlvl_feats))], 1)
         ref = self._reference_points(tuple(shapes), lambda: _grid_reference_points(shapes),
                                      dev, dt)
@@ -160,6 +162,10 @@ class _MultiHeadAttention(nn.Module):
         self.key = nn.Linear(dims, dims)
         self.value = nn.Linear(dims, dims)
         self.out = nn.Linear(dims, dims)
+        for lin in (self.query, self.key, self.value):
+            # flax's kernel is (dims, heads, head_dim): parallel/tensor.py
+            # applies JAX's rule to that shape
+            lin.jax_kernel_heads = num_heads
 
     def forward(self, q_in: torch.Tensor, k_in: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
         h = self.num_heads
@@ -228,8 +234,8 @@ class PixelTransformerDecoder(nn.Module):
         range-attention maps (B, H, W, Q) and the class logits (B,
         class_num), or None without ``classify``."""
         b, c = mask_features.shape[0], self.hidden_dim
-        queries = self.query_embed[None].expand(b, -1, -1)
-        qpos = self.query_pos[None].expand(b, -1, -1).to(queries.dtype)
+        queries = whole(self.query_embed)[None].expand(b, -1, -1)
+        qpos = whole(self.query_pos)[None].expand(b, -1, -1).to(queries.dtype)
         mems, mposs = [], []
         for f in ms_feats[:self.num_feature_levels]:
             h, w = f.shape[1], f.shape[2]

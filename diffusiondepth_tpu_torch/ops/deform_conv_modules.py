@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..models.common import conv2d_nhwc
+from ..models.common import conv2d_nhwc, linear
+from ..parallel.tensor import whole
 from .deform_conv import deform_conv, deform_psroi_pooling, modulated_deform_conv
 
 
@@ -58,7 +59,7 @@ class ModulatedDeformConv(_DeformBase):
     (B, Ho, Wo, dg * K) from the caller."""
 
     def forward(self, x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return modulated_deform_conv(x, offset, mask, _hwio(self.weight), self.bias,
+        return modulated_deform_conv(x, offset, mask, _hwio(whole(self.weight)), self.bias,
                                      self.stride, self.padding, self.dilation, self.groups,
                                      self.deformable_groups)
 
@@ -91,7 +92,7 @@ class DeformConv(_DeformBase):
                          groups, deformable_groups, bias=False)
 
     def forward(self, x: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
-        return deform_conv(x, offset, _hwio(self.weight), None, self.stride, self.padding,
+        return deform_conv(x, offset, _hwio(whole(self.weight)), None, self.stride, self.padding,
                            self.dilation, self.groups, self.deformable_groups)
 
 
@@ -137,6 +138,6 @@ class DeformRoIPoolingPack(DeformRoIPooling):
     def forward(self, x: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
         pooled = super().forward(x, rois, None)
         r = pooled.shape[0]
-        h = torch.relu(self.offset_fc1(pooled.reshape(r, -1)))
-        off = self.offset_fc2(h).reshape(r, self.out_size, self.out_size, 2)
+        h = torch.relu(linear(pooled.reshape(r, -1), self.offset_fc1, None))
+        off = linear(h, self.offset_fc2, None).reshape(r, self.out_size, self.out_size, 2)
         return super().forward(x, rois, off)

@@ -12,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.common import layer_norm
+from ..parallel.tensor import whole
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -68,7 +69,7 @@ class PatchEmbed(nn.Module):
         x = adaptive_pad(x, self.kernel_size, self.stride, self.dilation, self.pad_mode)
         p = self.projection
         dt = self.dtype or torch.promote_types(x.dtype, p.weight.dtype)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), p.weight.to(dt), None, p.stride, 0,
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), whole(p.weight).to(dt), None, p.stride, 0,
                      p.dilation).permute(0, 2, 3, 1) + p.bias.to(dt)
         if self.norm is not None:
             y = layer_norm(y, self.norm, self.dtype)

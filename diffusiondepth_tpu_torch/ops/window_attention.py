@@ -75,13 +75,17 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
 
 def window_attention_einsum(qkv: torch.Tensor, bias: torch.Tensor,
                             mask: Optional[torch.Tensor], scale: float,
-                            num_heads: int) -> torch.Tensor:
+                            num_heads: int, keep: Optional[torch.Tensor] = None,
+                            rate: float = 0.0) -> torch.Tensor:
     """The JAX ``WindowMSA`` einsum path (``use_pallas`` training,
-    ``fused_qkv_attention=False``), differentiable, in plain PyTorch: no
-    kernel, as JAX leaves it to XLA. qkv (B, nW, N, 3C) -> (B, nW, N, C).
-    Its rounding points are not K4's: ``q * scale``, the logits and the
-    bias and mask adds are in the input type, the softmax in f32, and the
-    probabilities go back to the input type before P.v."""
+    ``fused_qkv_attention=False``, attention dropout), differentiable, in
+    plain PyTorch: no kernel, as JAX leaves it to XLA. qkv (B, nW, N, 3C)
+    -> (B, nW, N, C). Its rounding points are not K4's: ``q * scale``, the
+    logits and the bias and mask adds are in the input type, the softmax in
+    f32, and the probabilities go back to the input type before P.v.
+    ``keep`` (B, nW, heads, N, N) bool: attention dropout at ``rate``, the
+    kept probabilities scaled by 1 / (1 - rate) in the input type, as
+    flax's ``Dropout``."""
     b, nw, n, c3 = qkv.shape
     c = c3 // 3
     dt = qkv.dtype
@@ -91,6 +95,8 @@ def window_attention_einsum(qkv: torch.Tensor, bias: torch.Tensor,
     if mask is not None:
         attn = attn + mask.to(dt)[None, :, None]
     attn = torch.softmax(attn.float(), dim=-1).to(dt)
+    if keep is not None:
+        attn = torch.where(keep, attn / (1.0 - rate), torch.zeros_like(attn))
     return torch.einsum("bwhqk,bwkhd->bwqhd", attn, v).reshape(b, nw, n, c)
 
 

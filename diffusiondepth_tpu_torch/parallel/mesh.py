@@ -1,13 +1,24 @@
-"""Data parallelism over one process per device (port of
+"""The mesh of one process per device (port of
 ``diffusiondepth_tpu/parallel/mesh.py``).
 
 JAX declares a mesh, shards the batch over its 'data' axis and lets GSPMD
 insert the gradient all-reduce and the cross-replica BatchNorm sums. The
 port runs one process per card under ``torch.distributed`` and computes
-the same numbers by hand:
+the same numbers by hand.
+
+The ranks lie on the mesh as JAX lays its devices: C-order over the
+spec's axes, in the spec's order, so rank r has the coordinates
+``np.unravel_index(r, sizes)`` ("data:2,model:2" and "model:2,data:2"
+differ). The ranks that share every coordinate but 'data' form a *data
+group*, those that share every coordinate but 'model' a *model group*
+(each created on every rank, in one order). The batch is sharded over
+'data' only (JAX's ``P("data")``): the ranks of a model group hold the
+same rows and draw the same numbers, and everything below reduces over
+the data group. Tensor parallelism over 'model' (``state_sharding``) is
+``parallel/tensor.py``'s.
 
 * ``--batch_size`` is the batch of one host. With ``accum_steps`` micro-
-  batches of m rows, rank r of n on the host takes rows
+  batches of m rows, data rank r of n on the host takes rows
   ``[i m + r m/n, i m + (r+1) m/n)`` of each micro-block i
   (``rank_rows``), so that its micro-batch i is its share of the global
   micro-batch i, as JAX's reshape of the sharded global batch gives it.
@@ -16,15 +27,16 @@ the same numbers by hand:
   masked sums: each through ``all_reduce_sum``, which autograd
   differentiates (its backward all-reduces the gradient).
 * Every random draw is of the global (micro-)batch's shape, from a
-  generator seeded the same on every rank; a rank keeps its own rows
-  (``draw_rows``). The generators stay in lockstep, and a run's numbers do
-  not depend on the number of ranks.
-* The parameters are replicated: broadcast from rank 0 after build and
-  restore, one bucketed all-reduce (sum) of the gradients per step.
+  generator seeded the same on every rank; a rank keeps its data
+  coordinate's rows (``draw_rows``). The generators stay in lockstep, and
+  a run's numbers do not depend on the number of ranks.
+* The parameters are replicated unless ``state_sharding`` cuts them:
+  broadcast from rank 0 after build and restore, one bucketed all-reduce
+  (sum) of the gradients over the data group per step.
 
 A mesh is made active around a step (``activate``); with no active mesh,
-or one of a single rank, every helper here is the identity, so a
-``data:1`` mesh computes the no-mesh results bit for bit.
+or one whose data axis has a single rank, every helper here is the
+identity, so a ``data:1`` mesh computes the no-mesh results bit for bit.
 
 The backend is chosen from the device list before the process group
 starts: NCCL where each rank has a card of its own, gloo on the CPU and
@@ -51,8 +63,6 @@ import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
-TENSOR_PARALLEL = ("tensor parallelism over a 'model' axis (JAX's state_sharding) is not "
-                   "ported yet: ROADMAP, 'The port slices left', item 1")
 # how long a collective (the rendezvous too) may wait before it raises
 TIMEOUT_S = 1800
 
@@ -71,18 +81,27 @@ def parse_mesh_shape(spec: Optional[str], n_devices: int) -> Dict[str, int]:
     return axes
 
 
-def check_data_only(axes: Dict[str, int]) -> None:
-    """Only the 'data' axis is ported: a 'model' axis of more than one
-    device raises."""
-    if axes.get("model", 1) > 1:
-        raise NotImplementedError(f"mesh {axes}: {TENSOR_PARALLEL}")
+def axis_ranks(axes: Dict[str, int], rank: int, axis: str) -> List[int]:
+    """The ranks that share every coordinate of ``rank`` but ``axis``, in
+    the order of that axis (JAX's C-order layout of the devices)."""
+    if axis not in axes:
+        return [rank]
+    sizes = tuple(axes.values())
+    coords = list(np.unravel_index(rank, sizes))
+    i = list(axes).index(axis)
+    out = []
+    for c in range(sizes[i]):
+        coords[i] = c
+        out.append(int(np.ravel_multi_index(tuple(coords), sizes)))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the data-parallel mesh: the axes, the world
-    (one rank per device), this rank's device and the process group (None
-    for a single process outside any group)."""
+    """This rank's place in the mesh: the axes, the world (one rank per
+    device), this rank's device, the process group (None for a single
+    process outside any group) and the groups of its data and model axes
+    (None where the axis has one rank or there is no group)."""
 
     axes: Dict[str, int]
     rank: int
@@ -92,10 +111,57 @@ class Mesh:
     device: torch.device
     group: Optional[object] = None
     backend: Optional[str] = None
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (0 on an axis the mesh lacks)."""
+        if axis not in self.axes:
+            return 0
+        sizes = tuple(self.axes.values())
+        return int(np.unravel_index(self.rank, sizes)[list(self.axes).index(axis)])
+
+    @property
+    def data_index(self) -> int:
+        return self.coord("data")
+
+    @property
+    def data_size(self) -> int:
+        return self.axes.get("data", 1)
+
+    @property
+    def model_index(self) -> int:
+        return self.coord("model")
+
+    @property
+    def model_size(self) -> int:
+        return self.axes.get("model", 1)
+
+    def data_ranks(self) -> List[int]:
+        return axis_ranks(self.axes, self.rank, "data")
+
+    def model_ranks(self) -> List[int]:
+        return axis_ranks(self.axes, self.rank, "model")
+
+    @property
+    def loader_index(self) -> int:
+        """This rank's place among the data ranks of its host: which rows
+        of the host batch it loads (``rank_rows``)."""
+        hosts = self.world_size // self.local_size
+        per_host = self.data_size // hosts
+        if self.data_size % hosts or self.data_index // per_host != self.rank // self.local_size:
+            raise ValueError(f"mesh {self.axes} over {hosts} hosts: a host must hold the "
+                             "ranks of consecutive data coordinates (a data-major mesh)")
+        return self.data_index % per_host
+
+    @property
+    def loader_count(self) -> int:
+        """The data ranks of one host: the host batch divides over them."""
+        return self.data_size // (self.world_size // self.local_size)
 
 
 # the per-rank devices the process group was started with
@@ -198,24 +264,42 @@ def create_mesh(mesh_shape: Optional[str] = None,
         devices = _GROUP_DEVICES if dist.is_initialized() else visible_devices()
     devices = [normalise_device(d) for d in devices]
     axes = parse_mesh_shape(mesh_shape, len(devices))
-    check_data_only(axes)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if len(devices) != world:
         raise ValueError(f"mesh {axes} spans {len(devices)} devices, but {world} process(es) "
                          "run: start one process per device (main --mesh_shape, or torchrun)")
     rank = dist.get_rank() if dist.is_initialized() else 0
     local, local_size, _, _ = _local_layout()
+    groups = {}
+    if dist.is_initialized():
+        for axis in ("data", "model"):
+            groups[axis] = _axis_group(axes, rank, world, axis)
     return Mesh(axes, rank, world, local, local_size, devices[rank],
                 dist.group.WORLD if dist.is_initialized() else None,
-                dist.get_backend() if dist.is_initialized() else None)
+                dist.get_backend() if dist.is_initialized() else None,
+                groups.get("data"), groups.get("model"))
 
 
-def state_sharding(state, mesh: Mesh):
-    """Every parameter is replicated under a data-only mesh; a 'model'
-    axis of more than one device raises (tensor parallelism is the next
-    slice)."""
-    check_data_only(mesh.axes)
-    return state
+def _axis_group(axes: Dict[str, int], rank: int, world: int, axis: str):
+    """This rank's group along ``axis``: the world where the axis spans
+    it, None where it has one rank; else every group of the axis is
+    created, on every rank in the same order, and this rank's returned."""
+    size = axes.get(axis, 1)
+    if size == 1:
+        return None
+    if size == world:
+        return dist.group.WORLD
+    mine = None
+    seen = set()
+    for r in range(world):
+        ranks = tuple(axis_ranks(axes, r, axis))
+        if ranks in seen:
+            continue
+        seen.add(ranks)
+        g = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine = g
+    return mine
 
 
 # ---- the rows of a rank
@@ -238,9 +322,10 @@ def rank_rows(batch_size: int, accum_steps: int, rank: int, ranks: int) -> np.nd
 
 def shard_batch(batch: Dict, mesh: Mesh, accum_steps: int = 1) -> Dict:
     """This rank's rows of a host batch (a dict of numpy arrays or
-    tensors; entries without a batch axis are kept whole)."""
+    tensors; entries without a batch axis are kept whole): those of its
+    data coordinate, the same on every rank of its model group."""
     first = next(v for v in batch.values() if getattr(v, "ndim", 0) > 0)
-    rows = rank_rows(first.shape[0], accum_steps, mesh.local_rank, mesh.local_size)
+    rows = rank_rows(first.shape[0], accum_steps, mesh.loader_index, mesh.loader_count)
     out = {}
     for k, v in batch.items():
         if getattr(v, "ndim", 0) == 0:
@@ -284,33 +369,41 @@ def active_mesh() -> Optional[Mesh]:
     return _ACTIVE.mesh if _ACTIVE is not None else None
 
 
+def data_mesh() -> Optional[Mesh]:
+    """The active mesh when its data axis has more than one rank, else
+    None: the batch is then split, and batch-level terms reduce."""
+    mesh = active_mesh()
+    return mesh if mesh is not None and mesh.data_size > 1 else None
+
+
 def local_share() -> float:
     """This rank's share of a batch-level term: its rows over the global
-    rows (every rank holds as many), 1 with no active mesh."""
-    mesh = active_mesh()
-    return 1.0 if mesh is None else 1.0 / mesh.world_size
+    rows (every data rank holds as many), 1 with no data-parallel mesh."""
+    mesh = data_mesh()
+    return 1.0 if mesh is None else 1.0 / mesh.data_size
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of the active mesh, differentiable
-    (the backward all-reduces the gradient); ``t`` itself with no active
-    mesh."""
-    mesh = active_mesh()
+    """The sum of ``t`` over the data group of the active mesh,
+    differentiable (the backward all-reduces the gradient); ``t`` itself
+    with no data-parallel mesh."""
+    mesh = data_mesh()
     if mesh is None:
         return t
-    return dist_nn.all_reduce(t, group=mesh.group)
+    return dist_nn.all_reduce(t, group=mesh.data_group)
 
 
 def draw_rows(draw: Callable[..., torch.Tensor], shape: Sequence[int], dim: int = 0,
               **kwargs) -> torch.Tensor:
     """``draw(shape, **kwargs)`` (``torch.randn``, ``torch.rand``, ...) of
     this rank's rows: under an active mesh the draw is of the global
-    batch's shape along ``dim`` and the rank keeps its rows, so every
-    rank's generator advances as one process's would."""
+    batch's shape along ``dim`` and the rank keeps its data coordinate's
+    rows (the ranks of a model group draw alike), so every rank's
+    generator advances as one process's would."""
     act = _ACTIVE
-    if act is None:
+    if act is None or act.mesh.data_size == 1:
         return draw(tuple(shape), **kwargs)
-    n, r, seg = act.mesh.world_size, act.mesh.rank, act.segments
+    n, r, seg = act.mesh.data_size, act.mesh.data_index, act.segments
     shape = list(shape)
     per = shape[dim] // seg
     shape[dim] *= n
@@ -339,13 +432,14 @@ BUCKET_BYTES = 64 << 20
 
 def all_reduce_grads(params: Sequence[torch.nn.Parameter], mesh: Optional[Mesh],
                      bucket_bytes: int = BUCKET_BYTES) -> Dict[str, float]:
-    """Sum the gradients of ``params`` over the ranks, in place: each
+    """Sum the gradients of ``params`` over the data group, in place: each
     bucket of at most ``bucket_bytes`` is flattened into one buffer,
     all-reduced and copied back. Parameters without a
     gradient are left out (the same on every rank: the ranks run one
-    code path). Returns the bytes reduced and the seconds it took."""
+    code path); a sharded parameter's gradient is its shard's. Returns
+    the bytes reduced and the seconds it took."""
     grads = [p.grad for p in params if p.grad is not None]
-    if mesh is None or mesh.world_size == 1 or not grads:
+    if mesh is None or mesh.data_size == 1 or not grads:
         return {"bytes": 0, "seconds": 0.0}
     t0 = time.perf_counter()
     total = 0
@@ -355,7 +449,7 @@ def all_reduce_grads(params: Sequence[torch.nn.Parameter], mesh: Optional[Mesh],
     def flush():
         nonlocal total
         flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat, group=mesh.group)
+        dist.all_reduce(flat, group=mesh.data_group)
         off = 0
         for g in bucket:
             g.copy_(flat[off:off + g.numel()].view_as(g))
@@ -377,16 +471,16 @@ def all_reduce_grads(params: Sequence[torch.nn.Parameter], mesh: Optional[Mesh],
 
 
 def gather_rows(t: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:
-    """The rows (along ``dim``) of ``t`` from every rank, concatenated in
-    rank order (the host batch's order for a step without accumulation),
-    on ``t``'s device."""
-    if mesh is None or mesh.world_size == 1:
+    """The rows (along ``dim``) of ``t`` from every rank of the data
+    group, concatenated in data order (the host batch's order for a step
+    without accumulation), on ``t``'s device."""
+    if mesh is None or mesh.data_size == 1:
         return t
     src = t.detach().contiguous()
     if mesh.backend == "gloo":  # gloo's all_gather takes no CUDA tensor
         src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, src, group=mesh.group)
+    parts = [torch.empty_like(src) for _ in range(mesh.data_size)]
+    dist.all_gather(parts, src, group=mesh.data_group)
     return torch.cat(parts, dim).to(t.device)
 
 

@@ -24,7 +24,8 @@ Usage (every flag of ``main`` passes through, plus the harness's):
 ``--mesh_shape data:N`` divides each batch over N ranks, one process per
 device, as ``main`` runs them (``parallel/launch.py``): each metric row is
 the global batch's, as JAX's ``eval_parity`` takes the mesh; the
-batch must divide over the ranks.
+batch must divide over the ranks. ``data:D,model:K`` runs D x K ranks with
+the batch split over 'data' and the weights replicated, as ``main``.
 
 Reference values are ``path.json`` holding ``{"RMSE": 0.9801, ...}`` or
 ``path.json#key`` (dots for nested keys) selecting a sub-dict.
@@ -104,8 +105,8 @@ def _parity_eval(cfg: Config, dev: torch.device, mesh, n_seeds: int,
     from ..utils.checkpoint import load_checkpoint
 
     main_rank = mesh is None or mesh.is_main
-    shard = dict(process_info(), rank_index=mesh.local_rank,
-                 rank_count=mesh.local_size) if mesh else {}
+    shard = dict(process_info(), rank_index=mesh.loader_index,
+                 rank_count=mesh.loader_count) if mesh else {}
     ds = get_data(cfg)(cfg, "test")
     loader = DataLoader(ds, cfg.test_batch_size, shuffle=False, num_threads=2, seed=cfg.seed,
                         **shard)

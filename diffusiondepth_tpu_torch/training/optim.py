@@ -11,7 +11,9 @@
 * ``split_backbone_training``: ``depth_backbone.*`` parameters at 0.1x lr.
 
 The schedule is read at the optimizer's own step count before it is
-incremented, as optax's ``scale_by_learning_rate`` does.
+incremented, as optax's ``scale_by_learning_rate`` does. Every update is
+elementwise, so under tensor parallelism (``parallel/tensor.py``) it runs
+on a parameter's shard, with moments of the shard's shape.
 """
 
 from __future__ import annotations

@@ -17,6 +17,17 @@ loss and its row are all-reduced. JAX's ``data`` axis computes the same
 rather than through ``DistributedDataParallel``, which averages where JAX
 sums and divides by the global batch, hooks ``forward`` and wants every
 parameter used.
+
+With a 'model' axis the batch is split over 'data' only: the ranks of a
+model group step on the same rows, and the all-reduce runs over the data
+group. ``state_shardings`` (``parallel.state_sharding``, the model cut by
+``parallel.shard_state``) keeps each sharded parameter and its optimizer
+moments as this rank's shard through the update, as JAX's jit does with
+its ``in_shardings``: a sharded layer computes only its shard's outputs
+(``parallel/tensor.py``), its gradient is this rank's slice of the whole
+one, and the optimizer's elementwise update runs on the shards. The
+replicated parameters' gradients are then broadcast over the model group,
+so that its copies stay bit-equal.
 """
 
 from __future__ import annotations
@@ -27,10 +38,12 @@ import torch
 
 from ..metrics.depth_metrics import evaluate_depth_metrics
 from ..parallel.mesh import Mesh, activate, all_reduce_grads, all_reduce_sum, gather_rows
+from ..parallel.tensor import COMM, StateSharding, check_sharded_as, sync_whole_grads
 
 
 def make_train_step(model, loss_computer, optimizer, accum_steps: int = 1,
-                    mesh: Optional[Mesh] = None) -> Callable:
+                    mesh: Optional[Mesh] = None,
+                    state_shardings: Optional[StateSharding] = None) -> Callable:
     """Returns ``train_step(batch, generator=None) -> (loss, loss_val,
     metric_val)``.
 
@@ -45,8 +58,19 @@ def make_train_step(model, loss_computer, optimizer, accum_steps: int = 1,
     Under ``mesh`` the batch is this rank's rows and every rank calls the
     step with a generator seeded alike; the returned loss, loss row and
     metric row are the global batch's, and ``train_step.comm`` holds the
-    last step's gradient all-reduce (bytes, seconds)."""
-    world = 1 if mesh is None else mesh.world_size
+    last step's gradient all-reduce over the data group (bytes, seconds).
+    ``state_shardings``: the model is sharded so (module docstring)."""
+    world = 1 if mesh is None else mesh.data_size
+    if state_shardings is not None:
+        check_sharded_as(model, state_shardings)
+
+    def reduce_grads():
+        params = list(model.parameters())
+        comm = all_reduce_grads(params, mesh)
+        COMM["grad_allreduce"][0] += comm["bytes"]
+        COMM["grad_allreduce"][1] += comm["seconds"]
+        sync_whole_grads(params, mesh)
+        return comm
 
     def micro(mb: Dict[str, torch.Tensor], generator):
         out = model(mb, generator=generator)
@@ -75,7 +99,7 @@ def make_train_step(model, loss_computer, optimizer, accum_steps: int = 1,
                 loss_sum = loss_sum + l_sum.detach()
                 loss_val = loss_val + lval.detach()
                 preds.append(pred.detach())
-            train_step.comm = all_reduce_grads(list(model.parameters()), mesh)
+            train_step.comm = reduce_grads()
             with torch.no_grad():
                 for p in model.parameters():
                     if p.grad is not None:
@@ -84,7 +108,7 @@ def make_train_step(model, loss_computer, optimizer, accum_steps: int = 1,
         else:
             loss_sum, loss_val, pred = micro(batch, generator)
             (loss_sum / batch_size).backward()
-            train_step.comm = all_reduce_grads(list(model.parameters()), mesh)
+            train_step.comm = reduce_grads()
             loss_sum, loss_val, pred = loss_sum.detach(), loss_val.detach(), pred.detach()
         optimizer.step()
         with torch.no_grad():
@@ -138,7 +162,10 @@ def make_eval_step(model, tta_flip: bool = False, extra_keys: Sequence[str] = ()
     rows; the starting latent is this rank's rows of the global batch's
     draw (under flip-TTA, of the global batch and of its mirror), the
     metric row is the global batch's, and with ``gather`` pred and the
-    extras are every rank's rows in rank order (the host batch's)."""
+    extras are every data rank's rows in data order (the host batch's).
+    A model sharded by ``parallel.shard_state`` runs its sharded layers as
+    training does; the result is the whole state's (JAX replicates the
+    state for eval)."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor],

@@ -100,19 +100,14 @@ def test_args_json_is_json():
 
 @pytest.mark.parametrize("spec", ["data:2", "data:4,model:2", "model:2"])
 def test_mesh_over_one_device_raises(spec):
-    """A 'data' mesh parses, and ``create_mesh`` raises when it asks for
-    more devices than it is given, as JAX's ``parse_mesh_shape`` does; a
-    'model' axis of more than one device raises at the command line,
-    naming the tensor-parallel slice, instead of being ignored."""
+    """A 'data' mesh and a 2-D 'data' x 'model' one parse, and
+    ``create_mesh`` raises when it asks for more devices than it is given,
+    as JAX's ``parse_mesh_shape`` does."""
     from diffusiondepth_tpu_torch.parallel import create_mesh
 
-    if "model" in spec:
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            pconfig.parse_args(["--mesh_shape", spec])
-    else:
-        assert pconfig.parse_args(["--mesh_shape", spec]).mesh_shape == spec
-        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
-            create_mesh(spec, [torch.device("cpu")])
+    assert pconfig.parse_args(["--mesh_shape", spec]).mesh_shape == spec
+    with pytest.raises(ValueError, match=f"needs {pconfig.mesh_devices(spec)} devices, have 1"):
+        create_mesh(spec, [torch.device("cpu")])
     assert pconfig.parse_args(["--mesh_shape", "data:1"]).mesh_shape == "data:1"
 
 

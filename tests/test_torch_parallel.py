@@ -125,15 +125,20 @@ def test_ragged_eval_batch_raises():
 
 @pytest.mark.parametrize("spec", ["model:2", "data:2,model:2"])
 def test_model_axis_raises(spec):
-    """Tensor parallelism is the next slice: a 'model' axis of more than
-    one device raises at the command line, in create_mesh and in
-    state_sharding."""
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        pconfig.parse_args(["--mesh_shape", spec])
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        create_mesh(spec, [CPU] * pconfig.mesh_devices(spec))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        state_sharding({}, Mesh(pconfig.mesh_axes(spec), 0, 1, 0, 1, CPU))
+    """A 'model' axis parses at the command line as JAX's does, and
+    create_mesh raises where it asks for more devices than it is given or
+    than there are processes, as for a 'data' axis; state_sharding takes
+    the mesh."""
+    n = pconfig.mesh_devices(spec)
+    assert pconfig.parse_args(["--mesh_shape", spec]).mesh_shape == spec
+    with pytest.raises(ValueError, match=f"needs {n} devices, have 1"):
+        create_mesh(spec, [CPU])
+    with pytest.raises(ValueError, match="start one process per device"):
+        create_mesh(spec, [CPU] * n)
+    mesh = Mesh(pconfig.mesh_axes(spec), 0, n, 0, n, CPU)
+    assert (mesh.model_size, mesh.data_size) == (2, n // 2)
+    layer = torch.nn.Linear(256, 256)
+    assert state_sharding(layer, mesh).sharded == ["weight"]
 
 
 def test_mesh_over_more_devices_than_processes_raises():

@@ -1,7 +1,9 @@
 """Two data-parallel ranks sharing one card (gloo: NCCL refuses two ranks
 on one device), started by the port's launcher, against one process on the
 card: swin_micro under the flagship head at ``accum_steps=2``, f32 with
-TF32 and cuDNN off, 4 x 64x96, 2 DDIM steps. Marked ``cuda``: skips where
+TF32 and cuDNN off, 4 x 64x96, 2 DDIM steps; and two tensor-parallel ranks
+(``model:2``) of every sharded-layer route in f64 (gloo's gathers of CUDA
+tensors), against the same layers whole on the CPU to 1e-10. Marked ``cuda``: skips where
 there is no CUDA device. On a machine with a card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_parallel_cuda.py
@@ -100,3 +102,31 @@ def test_two_ranks_on_one_card_match_one_process(dev, tmp_path):
     for key in ("params", "buffers", "grads"):
         for n in r0[key]:
             assert torch.equal(r0[key][n], r1[key][n]), (key, n)
+
+
+def test_sharded_layer_routes_on_one_card(dev, tmp_path):
+    """The routes of ``test_torch_parallel_support.tp_layers`` (column-
+    parallel Conv2d, ConvTranspose2d, Linear and attention shards;
+    weight-gather of a depthwise conv and an embedding) on two ranks
+    sharing the card, f64: output, dX and every whole gradient within 1e-10
+    of the whole layers on the CPU (each leaf against its largest value,
+    floored at 1e-4 of the largest leaf: the key bias's gradient is
+    analytically zero). The card's and the CPU's f64 sums run in other
+    orders: a Linear weight gradient lay 1.5e-12 of its leaf from the
+    CPU's (NVIDIA H100 80GB HBM3, 700 W), where a wrong route errs by O(1)."""
+    rng = np.random.RandomState(3)
+    case = {"name": "layers", "mesh_shape": "model:2", "min_size": 256,
+            "x": rng.randn(2, 4, 6, 8), "t": np.array([3, 7]), "w": rng.randn(2, 96, 32)}
+    torch.save([case], tmp_path / "cases.pt")
+    launch(support.run_cases, [dev, dev], _free_port(), (str(tmp_path),))
+    layers = support.tp_layers()
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    y = layers(x, torch.from_numpy(case["t"]))
+    (y * torch.from_numpy(case["w"])).sum().backward()
+    gmax = max(p.grad.abs().max().item() for p in layers.parameters())
+    for r in range(2):
+        out = torch.load(tmp_path / f"layers_{r}.pt", weights_only=False)
+        for got, ref in [(out["y"], y.detach()), (out["dx"], x.grad)] + [
+                (out["grads"][n], p.grad) for n, p in layers.named_parameters()]:
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-10 * max(ref.abs().max().item(), 1e-4 * gmax), err

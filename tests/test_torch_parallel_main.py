@@ -21,6 +21,10 @@ thread each).
 * The threshold metrics D^1-D^3 count pixels: a pixel at a threshold that
   flips moves them by one over the valid pixels, so they are also allowed
   3 pixels of an eval batch (3 / (8 x 32 x 48)).
+* ``--mesh_shape data:1,model:2`` runs two ranks as JAX's ``main`` runs a
+  'model' axis: the batch over 'data' alone, the state replicated (no
+  ``state_sharding``); the logs and the final checkpoint are the
+  one-process run's, bit for bit.
 """
 
 import json
@@ -73,7 +77,8 @@ def _main(save_dir, *argv):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("main_dp")
-    out = {"one": _main(root / "one"), "two": _main(root / "two", "--mesh_shape", "data:2")}
+    out = {"one": _main(root / "one"), "two": _main(root / "two", "--mesh_shape", "data:2"),
+           "model": _main(root / "model", "--mesh_shape", "data:1,model:2")}
     ckpt = str(root / "two" / "model_00001.ckpt")
     out["one_resume"] = _main(root / "one_resume", "--resume", "--pretrain", ckpt)
     out["two_resume"] = _main(root / "two_resume", "--resume", "--pretrain", ckpt,
@@ -146,3 +151,23 @@ def test_resume_matches_the_one_process_resume(runs):
     for mode in ("val", "test"):
         _close(_scalars(two, mode), _scalars(one, mode), LATER, 1e-6)
     assert "loaded checkpoint" in out["two_resume"]
+
+
+def test_model_axis_is_the_one_process_run(runs):
+    """data:1,model:2: the model ranks repeat one process's work on the
+    same batch; rank 0 writes that run's logs and checkpoints."""
+    import torch
+
+    root, out = runs
+    one, model = root / "one", root / "model"
+    assert "mesh: {'data': 1, 'model': 2}" in out["model"]
+    assert _files(model) == _files(one)
+    for name in ("loss_train.txt", "metric_train.txt", "metric_val.txt", "metric_test.txt",
+                 "scalars_train.jsonl", "scalars_val.jsonl", "scalars_test.jsonl"):
+        assert (model / name).read_text() == (one / name).read_text(), name
+    ck = [torch.load(d / "model_00002.ckpt", weights_only=True) for d in (one, model)]
+    assert ck[0]["state_dict"].keys() == ck[1]["state_dict"].keys()
+    assert all(torch.equal(ck[0]["state_dict"][k], ck[1]["state_dict"][k])
+               for k in ck[0]["state_dict"])
+    st = [c["opt_state"]["optimizer"]["state"] for c in ck]
+    assert all(torch.equal(st[0][i][k], st[1][i][k]) for i in st[0] for k in st[0][i])

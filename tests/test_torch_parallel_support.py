@@ -18,6 +18,17 @@ runs each case of
 * ``reductions``: ``sig_loss`` and ``evaluate_depth_metrics`` of the
   case's (pred, gt) under the mesh.
 
+A case with ``min_size`` is tensor-parallel: the model is cut by
+``state_sharding(model, mesh, min_size)`` and ``shard_state`` before the
+steps, the train step takes ``state_shardings``, and the gradients and
+parameters saved are made whole again (``whole_like``,
+``gather_state_dict``); ``local`` holds the elements of this rank's
+parameters and Adam moments, ``sharded`` the names that were cut; after
+the step every rank saves the state through ``save_checkpoint`` (rank 0
+writes ``CASE_DIR/<case>_ckpt``), restores that whole checkpoint into its
+shards, and records whether its shards came back bit for bit
+(``restored``).
+
 A case with ``inject`` hands the model the given global draws (the
 starting latent, the ddim_loss noise and timesteps; each rank its rows)
 and turns drop-path off, as the JAX comparisons need; without it the
@@ -49,6 +60,39 @@ def _inject(model, draws, rank, ranks):
             blk.drop_path_rate = 0.0
 
 
+def tp_layers():
+    """One layer of every tensor-parallel route, f64: a Conv2d and a
+    ConvTranspose2d (column-parallel), a depthwise Conv2d and an embedding
+    table (weight-gather), a Linear (column-parallel) and flax's attention
+    (query/key/value cut on whole heads). ``forward(x, t) -> y``."""
+    import torch.nn as nn
+
+    from diffusiondepth_tpu_torch.models.common import conv2d_nhwc, conv_transpose2d_nhwc, linear
+    from diffusiondepth_tpu_torch.models.necks.transformer import _MultiHeadAttention
+    from diffusiondepth_tpu_torch.parallel import whole
+
+    class Layers(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2d(8, 32, 3, 1, 1)
+            self.deconv = nn.ConvTranspose2d(32, 32, 2, 2)
+            self.dw = nn.Conv2d(32, 32, 3, 1, 1, groups=32)
+            self.lin = nn.Linear(32, 32)
+            self.embed = nn.Embedding(10, 32)
+            self.attn = _MultiHeadAttention(32, 4)
+
+        def forward(self, x, t):
+            y = conv2d_nhwc(x, self.conv.weight, self.conv.bias, 1, 1)
+            y = conv_transpose2d_nhwc(torch.relu(y), self.deconv.weight, self.deconv.bias, 2, 0, 0)
+            y = conv2d_nhwc(y, self.dw.weight, self.dw.bias, 1, 1, groups=32)
+            y = linear(y, self.lin, None) + whole(self.embed.weight)[t][:, None, None, :]
+            tok = y.reshape(y.shape[0], -1, 32)
+            return self.attn(tok, tok, tok)
+
+    torch.manual_seed(0)
+    return Layers().double()
+
+
 def fail_on_rank(rank_to_fail: int) -> int:
     """Rank ``rank_to_fail`` raises; the others sum a one across the ranks
     (and wait there for a failed one)."""
@@ -66,9 +110,15 @@ def run_cases(case_dir: str) -> None:
     from diffusiondepth_tpu_torch.config import Config
     from diffusiondepth_tpu_torch.losses import sig_loss
     from diffusiondepth_tpu_torch.metrics import evaluate_depth_metrics
-    from diffusiondepth_tpu_torch.parallel import activate, create_mesh, shard_batch
+    from diffusiondepth_tpu_torch.parallel import (
+        activate, create_mesh, gather_state_dict, shard_batch, shard_state, state_sharding,
+    )
+    from diffusiondepth_tpu_torch.parallel.tensor import whole_like
     from diffusiondepth_tpu_torch.training.steps import make_eval_step, make_train_step
     from diffusiondepth_tpu_torch.training.train_state import create_train_state
+    from diffusiondepth_tpu_torch.utils.checkpoint import (
+        load_checkpoint, restore_state, save_checkpoint,
+    )
 
     torch.set_num_threads(1)
     # oneDNN's CPU convolution backward loses precision at some shapes
@@ -81,8 +131,21 @@ def run_cases(case_dir: str) -> None:
     cases = torch.load(os.path.join(case_dir, "cases.pt"), weights_only=False)
     for case in cases:
         mesh = create_mesh(case["mesh_shape"])
-        rank, ranks = mesh.rank, mesh.world_size
+        rank, ranks = mesh.data_index, mesh.data_size
         out = {}
+        if case["name"] == "layers":
+            dev = mesh.device
+            layers = tp_layers().to(dev)
+            shard_state(layers, state_sharding(layers, mesh, case["min_size"]))
+            x = torch.from_numpy(case["x"]).to(dev).requires_grad_(True)
+            y = layers(x, torch.from_numpy(case["t"]).to(dev))
+            (y * torch.from_numpy(case["w"]).to(dev)).sum().backward()
+            out = {"y": y.detach().cpu(), "dx": x.grad.cpu(),
+                   "grads": {n: whole_like(p.grad, p).cpu()
+                             for n, p in layers.named_parameters()},
+                   "local": {n: p.numel() for n, p in layers.named_parameters()}}
+            torch.save(out, os.path.join(case_dir, f"{case['name']}_{mesh.rank}.pt"))
+            continue
         if case["name"] == "reductions":
             pred = shard_batch({"x": torch.from_numpy(case["pred"])}, mesh)["x"]
             gt = shard_batch({"x": torch.from_numpy(case["gt"])}, mesh)["x"]
@@ -90,7 +153,7 @@ def run_cases(case_dir: str) -> None:
                 out["sig"] = sig_loss(pred, gt)
                 out["metrics"] = evaluate_depth_metrics({"gt": gt}, {"pred": pred})
             out["local_metrics"] = evaluate_depth_metrics({"gt": gt}, {"pred": pred})
-            torch.save(out, os.path.join(case_dir, f"{case['name']}_{rank}.pt"))
+            torch.save(out, os.path.join(case_dir, f"{case['name']}_{mesh.rank}.pt"))
             continue
         dev = mesh.device
         cfg = Config.from_dict(case["config"])
@@ -98,6 +161,11 @@ def run_cases(case_dir: str) -> None:
         model.load_state_dict(case["state_dict"])
         if case.get("inject") is not None:
             _inject(model, case["inject"], rank, ranks)
+        sharding = None
+        if case.get("min_size"):
+            sharding = state_sharding(model, mesh, case["min_size"])
+            shard_state(model, sharding)
+            out["sharded"] = sharding.sharded
         eval_step = make_eval_step(model, mesh=mesh, gather=True)
         ebatch = {k: torch.from_numpy(v).to(dev) for k, v in case["eval_batch"].items()}
         lat = case.get("inject") and case["inject"].get("eval_lat")
@@ -108,16 +176,33 @@ def run_cases(case_dir: str) -> None:
         out.update(pred=pred, eval_metric=emet)
         state = create_train_state(model, cfg, 10)
         step = make_train_step(model, LossComputer(cfg), state.optimizer, cfg.accum_steps,
-                               mesh=mesh)
+                               mesh=mesh, state_shardings=sharding)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in case["batch"].items()}
         gen = torch.Generator(dev).manual_seed(case["seed"])
         loss, lval, met = step(shard_batch(batch, mesh, cfg.accum_steps), gen)
+        whole_sd = gather_state_dict(model)
         out.update(loss=loss, loss_val=lval, metric=met, comm=dict(step.comm),
-                   grads={n: p.grad.clone() for n, p in model.named_parameters()
+                   grads={n: whole_like(p.grad, p).clone() for n, p in model.named_parameters()
                           if p.grad is not None},
-                   params={n: p.detach().clone() for n, p in model.named_parameters()},
-                   buffers={n: b.clone() for n, b in model.named_buffers()})
-        torch.save(out, os.path.join(case_dir, f"{case['name']}_{rank}.pt"))
+                   params={n: whole_sd[n].detach().clone() for n, _ in model.named_parameters()},
+                   buffers={n: b.clone() for n, b in model.named_buffers()},
+                   local={n: (p.numel(), sum(v.numel() for v in state.optimizer.state[p].values()
+                                              if torch.is_tensor(v)))
+                          for n, p in model.named_parameters()})
+        if sharding is not None:
+            import torch.distributed as dist
+
+            ckpt_dir = os.path.join(case_dir, f"{case['name']}_ckpt")
+            path = save_checkpoint(ckpt_dir, 1, state, cfg, save_full=True,
+                                   write=mesh.rank == 0)
+            dist.barrier()
+            held = [t.clone() for t in list(model.parameters())
+                    + [v for st in state.optimizer.state.values() for v in st.values()]]
+            restore_state(state, load_checkpoint(path))
+            back = list(model.parameters()) + [v for st in state.optimizer.state.values()
+                                               for v in st.values()]
+            out["restored"] = all(torch.equal(a, b) for a, b in zip(held, back))
+        torch.save(out, os.path.join(case_dir, f"{case['name']}_{mesh.rank}.pt"))
 
 
 if __name__ == "__main__":
