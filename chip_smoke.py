@@ -33,7 +33,10 @@ Phases, one JSON line each:
              K4 on the same data; the bf16 LayerNorm forward (K9) and
              backward (K10, run twice: bit-equal) at each (rows, channels)
              of the Swin-L norms of a 352x906 batch of 4, with K10's plan
-             and the share of the bound per shape and per pass. Each
+             and the share of the bound per shape and per pass, then at
+             every kind of width beyond Swin's (LN_ANY_SHAPES: C = 1 to
+             65536, K10's staged rows and wide variant, K9's looped
+             variant) with exact launch counts. Each
              reports its error against its tolerance, its time, the plain
              version's time, a library call's time where one exists and the
              least time the card could take (bound). The kernels that may take
@@ -93,8 +96,10 @@ Phases, one JSON line each:
              the device time of one step by part (the attentions' forward
              split out);
 7. layernorm - LayerNorm(dtype=bf16) forward and backward through
-             LayerNormBF16 at the largest Swin-L norm, card against CPU,
-             with exactly one K9 and one K10 launch;
+             LayerNormBF16, card against CPU, at the largest Swin-L norm,
+             the same from a view that does not start on 16 bytes, and
+             C = 7 from such a view, with exactly one K9 and one K10
+             launch each;
 8. reference (families) - mmbev_res18 + DDIMDepthEstimate_Res and
              mpvit_tiny + DDIMDepthEstimate_MPVIT_ADDHAHI at the micro
              shapes, card against CPU, f32 and bf16, module by module from
@@ -197,7 +202,9 @@ Phases, one JSON line each:
              under use_pallas) per request; tools/serve.serve_dir over 11 PNGs
              (a batch of 8 and a ragged 3) against the eager predictions; one
              served request traced with torch.profiler and summarised by
-             tools/analyze_trace (the three kernels with their counts); the
+             tools/analyze_trace (the three kernels with their counts in the
+             trace, beside ops.native.LAUNCHES counted around the same
+             request: both exact); the
              operators' dispatch cost (1000 K3 calls through the operator and
              direct); tools/eval_parity with 2 seeds on phase 11's 8 KITTI-DC
              test frames at batch 1 (finite statistics).
@@ -305,6 +312,13 @@ def swin_stage_windows(h_img, w_img, stage):
     hh, ww = swin_stage_grid(h_img, w_img, stage)
     h_pad, w_pad = hh + (-hh) % 7, ww + (-ww) % 7
     return h_pad, w_pad, (h_pad // 7) * (w_pad // 7)
+
+
+# (rows, channels) of the LayerNorm kernels beyond the Swin-L widths: C = 1,
+# odd, C % 8 != 0, above 3072, above K10's ring and above K9's
+# one-program row
+LN_ANY_SHAPES = ((1001, 1), (777, 7), (513, 100), (300, 3080), (129, 4100), (33, 9000),
+                 (3, 65536))
 
 
 def swin_norm_shapes(b, h_img, w_img):
@@ -1245,12 +1259,15 @@ def first_divergence(torch, run_a, run_b):
 def _trace_and_dispatch(torch, module, batch, lat_shape, gen0, steps, n_blk, root):
     """Phase 21 (e) and (f): one request served from the plain artifact
     traced with torch.profiler and summarised by tools/analyze_trace.py
-    (K1, K4 and K3 among the top kernels with their exact counts), then
-    the operators' dispatch cost: 1000 K3 launches at a small shape
+    (K1, K4 and K3 among the top kernels with their exact counts, and the
+    wrappers' launch counts around the same request, printed beside them
+    before either is checked: a miss in the trace alone is a lost event),
+    then the operators' dispatch cost: 1000 K3 launches at a small shape
     through the operator and through its CUDA implementation."""
     from torch.profiler import ProfilerActivity, profile
 
     from diffusiondepth_tpu_torch.ops import fused_denoiser as fd
+    from diffusiondepth_tpu_torch.ops import native
     from diffusiondepth_tpu_torch.tools import analyze_trace
 
     def sync():
@@ -1259,20 +1276,27 @@ def _trace_and_dispatch(torch, module, batch, lat_shape, gen0, steps, n_blk, roo
     dev = torch.device("cuda")
     # ---- (e) one served request traced with torch.profiler
     trace = os.path.join(root, "trace.json")
+    before = dict(native.LAUNCHES)
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as prof:
         module(batch, torch.randn(lat_shape, generator=gen0, device=dev))
         sync()
+    launched = {k: native.LAUNCHES[k] - before[k] for k in native.LAUNCHES}
     prof.export_chrome_trace(trace)
     summary_text = analyze_trace.summarize(trace, top=40)
     print(summary_text, flush=True)
     total_us, dur, cnt = analyze_trace.breakdown(analyze_trace.load_events(trace), "kernel")
     top = [ln.split("  ", 2)[-1] for ln in summary_text.splitlines() if " n=" in ln]
-    counts = {}
-    for k, want in (("conv_link", 6 * steps), ("window_attention", n_blk),
-                    ("ddim_step", steps)):
-        counts[k] = sum(c for name_, c in cnt.items() if k in name_)
-        check(counts[k] == want, f"trace: {counts[k]} {k} kernels, expected {want}")
+    want = {"conv_link": 6 * steps, "window_attention": n_blk, "ddim_step": steps}
+    counts = {k: sum(c for name_, c in cnt.items() if k in name_) for k in want}
+    emit({"phase": "export-serve", "step": "trace-counts", "expected": want,
+          "launches": {k: launched[k] for k in want}, "trace": counts,
+          "other_launches": {k: v for k, v in launched.items() if k not in want and v}})
+    check(launched == {k: want.get(k, 0) for k in launched},
+          f"traced request: launches {launched}, expected {want}")
+    for k in want:
+        check(counts[k] == want[k], f"trace: {counts[k]} {k} kernels, expected {want[k]}, "
+              f"{launched[k]} launched")
         check(any(k in t for t in top), f"trace: no {k} kernel among the top kernels")
     emit({"phase": "export-serve", "step": "trace", "device_ms": total_us / 1e3,
           "kernels": sum(cnt.values()), "op_kernel_counts": counts,
@@ -3036,6 +3060,80 @@ def main() -> int:
               f"{m}x{c}": n for (m, c), n in sorted(norm_shapes.items())}, **ln_pass})
     sync()
 
+    # ---- 3j. K9/K10 at every kind of width JAX's layernorm_bf16 takes
+    # beyond Swin's: C = 1, C % 8 != 0 (K10 stages rows to ceil8(C)), C
+    # above 3072 in K10's ring, above its ring (the wide variant) and above
+    # K9's one-program row (its looped variant)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, c in LN_ANY_SHAPES:
+        x2 = (randn(m, c, scale=2.0) + 0.5).to(bf)
+        dy2 = randn(m, c, dtype=bf)
+        lw, lb = 1.0 + randn(c, scale=0.2), randn(c, scale=0.1)
+        n0 = dict(port.LAUNCHES)
+        y_k, mean_k, inv_k = layernorm_fwd(x2, lw, lb, 1e-5)
+        dx_k, ds_k, db_k = layernorm_bwd(x2, dy2, mean_k, inv_k, lw)
+        dx_2, ds_2, db_2 = layernorm_bwd(x2, dy2, mean_k, inv_k, lw)
+        sync()
+        launched = {k: port.LAUNCHES[k] - n0[k] for k in ("layernorm_fwd", "layernorm_bwd")}
+        y_p, mean_p, inv_p = layernorm_fwd_plain(x2, lw, lb, 1e-5)
+        dx_p, ds_p, db_p = layernorm_bwd_plain(x2, dy2, mean_k, inv_k, lw)
+        bitwise = torch.equal(dx_k, dx_2) and torch.equal(ds_k, ds_2) and torch.equal(db_k, db_2)
+
+        def rel(a, b_):  # max |a - b| over the largest |b| (0 when both are 0)
+            d = (a.float() - b_.float()).abs().max().item()
+            return d / max(b_.float().abs().max().item(), 1e-30) if d else 0.0
+        errs = {"y": rel(y_k, y_p), "dx": rel(dx_k, dx_p),
+                "mean": ((mean_k - mean_p).abs() / (1.0 + mean_p.abs())).max().item(),
+                "inv": ((inv_k - inv_p).abs() / inv_p.abs()).max().item(),
+                "dscale": rel(ds_k, ds_p), "dbias": rel(db_k, db_p)}
+        tols = {"y": 1e-2, "dx": 1e-2, "mean": 1e-5, "inv": 1e-4, "dscale": 1e-3, "dbias": 1e-3}
+        check(launched == {"layernorm_fwd": 1, "layernorm_bwd": 2} and bitwise
+              and all(math.isfinite(errs[e]) and errs[e] <= tols[e] for e in errs),
+              f"layernorm ({m}, {c}): launches={launched} bitwise={bitwise} {errs}")
+        lwb, lbb = lw.to(bf), lb.to(bf)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x2, [c], lwb, lbb, 1e-5)
+        plan = layernorm_bwd_plan(m, c, sms)
+        n_el, pitch = m * c, plan.pitch
+        # K10's workspace: written and read once; staging when pitch != C:
+        # x and dy read and written padded, the kernel's padded columns, dx
+        # read padded and written cut back
+        part_bytes = 2 * plan.ctas * 2 * pitch * 4
+        stage_bytes = (4 * n_el + 4 * m * pitch + 6 * m * (pitch - c) + 2 * m * pitch
+                       + 2 * n_el) if pitch != c else 0
+        recs = {
+            "layernorm_fwd": (lambda: layernorm_fwd(x2, lw, lb, 1e-5),
+                              lambda: layernorm_fwd_plain(x2, lw, lb, 1e-5),
+                              lambda: F.layer_norm(x2, (c,), lwb, lbb, 1e-5),
+                              n_el * 4 + m * 8 + c * 8, 0, 8.0 * n_el),
+            "layernorm_bwd": (lambda: layernorm_bwd(x2, dy2, mean_k, inv_k, lw),
+                              lambda: layernorm_bwd_plain(x2, dy2, mean_k, inv_k, lw),
+                              lambda: torch.ops.aten.native_layer_norm_backward(
+                                  dy2, x2, [c], lmean, lrstd, lwb, lbb, [True, True, True]),
+                              n_el * 6 + m * 8 + c * 12, part_bytes + stage_bytes,
+                              12.0 * n_el),
+        }
+        for name_, (fn, plain_fn, lib_fn, nbytes, extra, flops) in recs.items():
+            ms, ev = small_ms(fn, iters * 2)
+            plain_ms = cuda_ms(plain_fn, max(1, iters // 3), 1)
+            lib_ms, lib_ev = small_ms(lib_fn, iters * 2)
+            bms, by = bound(nbytes, flops, F32_FLOPS)
+            rec = dict(ms=ms, event_ms=ev, plain_ms=plain_ms, library_ms=lib_ms,
+                       library_event_ms=lib_ev, bound_ms=bms, bound_by=by,
+                       share_of_bound=bms / ms)
+            if name_ == "layernorm_bwd":
+                rec["bound_with_workspace_and_staging_ms"] = bound(nbytes + extra, flops,
+                                                                   F32_FLOPS)[0]
+                rec["plan"] = {k: getattr(plan, k) for k in (
+                    "variant", "pitch", "ctas", "rows_per_stage", "stages", "threads_per_row",
+                    "vectors_per_thread", "smem_bytes")}
+            else:
+                rec["variant"] = ("one-program" if c <= native.triton_module("layernorm")
+                                  .ONE_PASS_MAX_C else "looped")
+            emit({"phase": "kernel", "kernel": name_, "shape": [m, c], "any_width": True,
+                  "errors": errs, "tols": tols, "bitwise_repeatable": bitwise, **rec})
+        del x2, dy2, y_k, y_p, dx_k, dx_2, dx_p, lmean, lrstd
+    sync()
+
     launches = {k: 0 for k in port.LAUNCHES}
     path_launches = {p: dict(launches) for p in ("serve", "serve-pallas", "train", "layernorm")}
     if not args.quick:
@@ -3753,44 +3851,58 @@ def main() -> int:
         del model, optimizer, step, batches, batch
         sync()
 
-        # ---- 7. LayerNorm(dtype=bf16) through LayerNormBF16, card vs CPU
-        m, c = ln_shape
+        # ---- 7. LayerNorm(dtype=bf16) through LayerNormBF16, card vs CPU:
+        # the largest Swin-L norm, the same from a view one element into its
+        # storage (LayerNormBF16 copies it to 16 bytes), and an odd C from
+        # such a view (K10 stages its rows); exactly one K9 and one K10
+        # launch each
         gen_cpu = torch.Generator().manual_seed(4)
-        mods = [LayerNorm(c, dtype=bf) for _ in range(2)]
-        with torch.no_grad():
-            mods[0].weight.copy_(1.0 + 0.2 * torch.randn(c, generator=gen_cpu))
-            mods[0].bias.copy_(0.1 * torch.randn(c, generator=gen_cpu))
-        mods[1].load_state_dict(mods[0].state_dict())
-        mods[0].to(dev)
-        x_cpu = (2.0 * torch.randn(m, c, generator=gen_cpu) + 0.5).to(bf)
-        dy_cpu = torch.randn(m, c, generator=gen_cpu).to(bf)
-        res = []
-        for mod, d in zip(mods, (dev, torch.device("cpu"))):
-            xg = x_cpu.to(d).requires_grad_()
-            if d.type == "cuda":
-                port.reset_launch_counts()
-            y = mod(xg)
-            y.backward(dy_cpu.to(d))
-            if d.type == "cuda":
-                sync()
-                ln_launches = dict(port.LAUNCHES)
-            res.append([t.float().cpu() for t in (y.detach(), xg.grad, mod.weight.grad,
-                                                   mod.bias.grad)])
-        ln_expect = {k: 0 for k in port.LAUNCHES}
-        ln_expect.update({"layernorm_fwd": 1, "layernorm_bwd": 1})
-        check(ln_launches == ln_expect, f"layernorm launch counts {ln_launches} != {ln_expect}")
+        port.reset_launch_counts()
+        ln_cases = []
+        for m, c, offset in (ln_shape + (0,), ln_shape + (1,), (777, 7, 1)):
+            mods = [LayerNorm(c, dtype=bf) for _ in range(2)]
+            with torch.no_grad():
+                mods[0].weight.copy_(1.0 + 0.2 * torch.randn(c, generator=gen_cpu))
+                mods[0].bias.copy_(0.1 * torch.randn(c, generator=gen_cpu))
+            mods[1].load_state_dict(mods[0].state_dict())
+            mods[0].to(dev)
+            x_cpu = (2.0 * torch.randn(m, c, generator=gen_cpu) + 0.5).to(bf)
+            dy_cpu = torch.randn(m, c, generator=gen_cpu).to(bf)
+            res = []
+            for mod, d in zip(mods, (dev, torch.device("cpu"))):
+                store = torch.zeros(m * c + offset, dtype=bf, device=d)
+                store[offset:] = x_cpu.reshape(-1).to(d)
+                store.requires_grad_()
+                xg = store[offset:].view(m, c)
+                if d.type == "cuda":
+                    check((xg.data_ptr() % 16 != 0) == bool(offset), "layernorm view offset")
+                    n0 = dict(port.LAUNCHES)
+                y = mod(xg)
+                y.backward(dy_cpu.to(d))
+                if d.type == "cuda":
+                    sync()
+                    case_launches = {k: port.LAUNCHES[k] - n0[k] for k in port.LAUNCHES}
+                res.append([t.float().cpu() for t in (y.detach(), store.grad[offset:].view(m, c),
+                                                       mod.weight.grad, mod.bias.grad)])
+            ln_expect = {k: 0 for k in port.LAUNCHES}
+            ln_expect.update({"layernorm_fwd": 1, "layernorm_bwd": 1})
+            check(case_launches == ln_expect,
+                  f"layernorm ({m}, {c}) offset {offset}: launch counts {case_launches}")
+            # y and dx in bf16: one bf16 step; dweight, dbias: f32 sums over
+            # all rows in another order
+            ln_tol = {"y": 1e-2, "dx": 1e-2, "dweight": 1e-3, "dbias": 1e-3}
+            ln_err = {k: ((a - b_).abs().max() / b_.abs().max()).item()
+                      for k, a, b_ in zip(ln_tol, *res)}
+            check(all(math.isfinite(ln_err[k]) and ln_err[k] <= ln_tol[k] for k in ln_tol),
+                  f"layernorm module ({m}, {c}) offset {offset}: {ln_err}")
+            ln_cases.append({"shape": [m, c], "offset_elements": offset, "rel_err": ln_err,
+                             "launches": {k: v for k, v in case_launches.items() if v}})
+            del mods, res
+        ln_launches = dict(port.LAUNCHES)
         path_launches["layernorm"] = ln_launches
-        # y and dx in bf16: one bf16 step; dweight, dbias: f32 sums over
-        # all rows in another order
-        ln_tol = {"y": 1e-2, "dx": 1e-2, "dweight": 1e-3, "dbias": 1e-3}
-        ln_err = {k: ((a - b_).abs().max() / b_.abs().max()).item()
-                  for k, a, b_ in zip(ln_tol, *res)}
-        check(all(math.isfinite(ln_err[k]) and ln_err[k] <= ln_tol[k] for k in ln_tol),
-              f"layernorm module: {ln_err}")
-        emit({"phase": "layernorm", "what": f"LayerNorm({c}, dtype=bf16) forward + backward "
-              f"on ({m}, {c}), card vs CPU plain versions", "rel_err": ln_err, "tol": ln_tol,
+        emit({"phase": "layernorm", "what": "LayerNorm(C, dtype=bf16) forward + backward, "
+              "card vs CPU plain versions", "tol": ln_tol, "cases": ln_cases,
               "launches": ln_launches})
-        del mods, res
         sync()
 
         # ---- 8. the ResNet and MPViT families at the micro shapes: card

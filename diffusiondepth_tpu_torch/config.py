@@ -47,7 +47,7 @@ HEAD_CHOICES = (
     "DDIMDepthEstimate_ResVis",
     "DDIMDepthEstimate_Swin_ADDHAHIVis",
     "DDIMDepthEstimate_MPVIT_ADDHAHI",
-    # the reference's unregistered 'bins' heads (not ported yet)
+    # the reference's unregistered 'bins' heads (the concat denoiser)
     "DDIMDepthEstimate_Swin",
     "DDIMDepthEstimate_Swin_Bins_ADDVis",
 )
@@ -65,7 +65,7 @@ class Config:
 
     # ---- Hardware (reference src/config.py:41-61) ----
     seed: int = 7240
-    gpus: str = "0,1,2,3"  # flag parity; the port runs on one GPU
+    gpus: str = "0,1,2,3"  # flag parity; ranks and cards come from --mesh_shape
     port: str = "29500"
     num_threads: int = 1
     no_multiprocessing: bool = False
@@ -81,8 +81,9 @@ class Config:
     affinity_gamma: float = 0.5
     conf_prop: bool = True
     legacy: bool = False
-    # NLSPN propagation radius of the JAX package's stencil path (NLSPN is
-    # not ported yet)
+    # NLSPN propagation through the stencil path (ops/stencil_prop.py),
+    # offsets clamped to this radius; 0: the exact bilinear-gather path
+    # (ops/deform_conv.py)
     prop_stencil_radius: int = 6
 
     backbone_module: str = "mmbev_resnet"

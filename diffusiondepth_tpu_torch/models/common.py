@@ -265,8 +265,9 @@ class LayerNorm(nn.Module):
     ``scale``/``bias``). ``dtype`` not bf16: f32 statistics and
     normalisation, output in ``dtype`` or the input's type. bf16: the
     input is cast to bf16 and ``LayerNormBF16`` runs (K9 forward, K10
-    backward on the card), output bf16. No model of the port builds it:
-    the Swin blocks use ``layer_norm``, as the JAX ones use flax's."""
+    backward on the card, at any width and from any view), output bf16.
+    No model of the port builds it: the Swin blocks use ``layer_norm``, as
+    the JAX ones use flax's."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None):

@@ -44,13 +44,12 @@ class Diffusion_DCbase_Model(nn.Module):
                  remat_backbone: bool = True, use_fused_denoiser: bool = True,
                  depth_transform_cfg: Optional[Dict[str, Any]] = None,
                  dtype: Optional[torch.dtype] = None):
-        """Only a Swin backbone takes ``use_pallas``,
-        ``fused_window_attention`` and ``remat_backbone``;
-        ``depth_transform_cfg`` goes to the head (None: its default)."""
+        """The backbone is ``backbone_name``'s (a ``KeyError`` names an
+        unknown one); ``backbone_module`` only says whether it is a Swin,
+        which alone takes ``use_pallas``, ``fused_window_attention`` and
+        ``remat_backbone``, as in JAX. ``depth_transform_cfg`` goes to the
+        head (None: its default)."""
         super().__init__()
-        if backbone_module not in _DEFAULT_HEAD:
-            raise ValueError(f"unknown backbone_module {backbone_module!r}; "
-                             f"ported: {sorted(_DEFAULT_HEAD)}")
         bb_kwargs = {}
         if backbone_module == "swin":
             bb_kwargs = dict(use_pallas=use_pallas, remat=remat_backbone,
@@ -86,24 +85,23 @@ def construct_model(cfg) -> nn.Module:
     the fused chain where its guard holds. ``Diffusion_DCx4base_``: the
     same with the X4 depth transform. ``NLSPN``: ``NLSPNModel`` with
     ``cfg.network``, the affinity options and ``cfg.prop_stencil_radius``.
-    ``--opt_level`` O1-O3 compute in bf16."""
+    ``--opt_level`` O1-O3 compute in bf16. Raises as JAX's ``build_model``
+    does: ``ValueError`` for another ``model_name``, ``KeyError`` for a
+    ``backbone_module`` without a default head when ``head_specify`` is
+    not given, and for an unknown backbone or head name."""
     dtype = cfg.compute_dtype if cfg.dtype == "bfloat16" else None
     if cfg.model_name == "NLSPN":
         return NLSPNModel(cfg, dtype=dtype)
     if cfg.model_name not in ("Diffusion_DCbase_", "Diffusion_DCx4base_"):
-        raise NotImplementedError(
-            f"model_name {cfg.model_name!r} is not ported yet (ROADMAP Queue 1)")
-    if cfg.backbone_module not in _DEFAULT_HEAD:
-        raise NotImplementedError(
-            f"backbone_module {cfg.backbone_module!r} is not ported; "
-            f"ported: {sorted(_DEFAULT_HEAD)}")
+        raise ValueError(f"unknown model_name {cfg.model_name!r}")
+    head = cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module]
     hic = cfg.head_in_channels
     if isinstance(hic, str):
         hic = tuple(int(c) for c in hic.split(","))
     return Diffusion_DCbase_Model(
         backbone_name=cfg.backbone_name,
         backbone_module=cfg.backbone_module,
-        head_name=cfg.head_specify or _DEFAULT_HEAD[cfg.backbone_module],
+        head_name=head,
         inference_steps=cfg.inference_steps,
         num_train_timesteps=cfg.num_train_timesteps,
         timestep_schedule=cfg.timestep_schedule,

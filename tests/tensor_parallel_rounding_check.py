@@ -137,7 +137,7 @@ def _worst(got, ref, n=3):
 def port_check(args):
     import test_torch_tensor_parallel_train as T
     from diffusiondepth_tpu_torch.parallel import launch
-    from test_torch_parallel_train import _free_port
+    from test_torch_support import free_port
 
     f64 = args.dtype == "f64"
     torch.set_num_threads(1)
@@ -149,7 +149,7 @@ def port_check(args):
                      "state_dict": sd, "batch": batch, "eval_batch": ebatch, "seed": T.SEED,
                      "min_size": T.MIN_SIZE, "inject": draws if inject else None}],
                    os.path.join(case_dir, "cases.pt"))
-        launch(_rank, [torch.device("cpu")] * ranks, _free_port(), (case_dir, f64))
+        launch(_rank, [torch.device("cpu")] * ranks, free_port(), (case_dir, f64))
         r0 = torch.load(os.path.join(case_dir, f"{args.case}_0.pt"), weights_only=False)
     if f64:
         _f64_everywhere()
@@ -208,7 +208,7 @@ def jax_check(args):
     from diffusiondepth_tpu.training.optim import make_optimizer as jmake_optimizer
     from diffusiondepth_tpu.training.steps import make_train_step as jmake_train_step
     from diffusiondepth_tpu.training.train_state import TrainState
-    from test_torch_parallel_train import _family
+    from test_torch_support import dp_family as _family
     from test_torch_support import Draws, FixedLatent, named
 
     cfg, jm, variables, _, batch, _, draws = _family("res18")

@@ -116,3 +116,48 @@ def test_compute_dtype_is_torch():
 
     assert pconfig.parse_args(["--opt_level", "O1"]).compute_dtype == torch.bfloat16
     assert pconfig.parse_args([]).compute_dtype == torch.float32
+
+
+# Config fields -> the exception both packages' build_model raise (None: both build)
+BAD_MODELS = {
+    "unknown_model_name": (dict(model_name="Diffusion_DCbase"), ValueError),
+    "unknown_backbone_module": (dict(model_name="Diffusion_DCbase_", backbone_module="resnet"),
+                                KeyError),
+    "unknown_backbone_module_with_head": (dict(
+        model_name="Diffusion_DCbase_", backbone_module="resnet",
+        head_specify="DDIMDepthEstimate_Res"), None),
+    "unknown_backbone_name": (dict(model_name="Diffusion_DCbase_", backbone_name="res18"),
+                              KeyError),
+    "unknown_head": (dict(model_name="Diffusion_DCbase_", head_specify="DDIMDepthEstimate"),
+                     KeyError),
+}
+
+
+def _raised(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001  (the type is the result)
+        return type(e)
+    return None
+
+
+@pytest.mark.parametrize("case", sorted(BAD_MODELS))
+def test_build_model_raises_as_jax(case):
+    """The same bad configs raise the same exception types from both
+    packages' ``build_model``: ``ValueError`` for an unknown model_name;
+    ``KeyError`` for a backbone_module without a default head (no
+    head_specify), an unknown backbone name or head; a backbone_module
+    JAX does not know builds when the head is given, as in JAX (its
+    backbone comes from backbone_name). JAX's flax modules build their
+    parts lazily, so its model is bound and its head read, which runs
+    ``setup``."""
+    from diffusiondepth_tpu.models.diffusion_model import build_model as jbuild
+    from diffusiondepth_tpu_torch import build_model
+
+    fields, want = BAD_MODELS[case]
+
+    def jax_build():
+        jbuild(jconfig.Config(**fields).finalize()).bind({}).depth_head
+
+    assert _raised(jax_build) is want
+    assert _raised(lambda: build_model(pconfig.Config(**fields).finalize(), device="cpu")) is want

@@ -205,10 +205,11 @@ def test_fused_guard_routes_as_jax(fuse, use_fused, bf16, latent_h, monkeypatch)
 
 
 def test_unknown_fuse_and_backbone_module_raise():
-    """No fallback: a fuse that neither package has, or an unported
-    backbone module, raises."""
+    """No fallback: a fuse that neither package has, or a backbone module
+    without a default head (no head_specify), raises: the latter with
+    JAX's ``KeyError``."""
     with pytest.raises(ValueError, match="bogus"):
         pden.ScheduledCNNRefine(64, 16, fuse="bogus")
     cfg = Config(model_name="Diffusion_DCbase_", backbone_module="nlspn").finalize()
-    with pytest.raises(NotImplementedError, match="nlspn"):
+    with pytest.raises(KeyError, match="nlspn"):
         build_model(cfg, device="cpu")

@@ -290,14 +290,19 @@ def test_window_attention_bf16_tile_edges(dev, B, nw, heads, n, masked):
 
 
 @pytest.mark.parametrize("m,c", [(300, 192), (129, 384), (37, 3072), (1001, 768), (1, 768),
-                                 (5016, 768), (1276, 1536), (1276, 3072)])
+                                 (5016, 768), (1276, 1536), (1276, 3072),
+                                 (1001, 1), (777, 7), (513, 100), (300, 3080), (129, 4100),
+                                 (33, 9000), (3, 65536)])
 def test_layernorm_fwd_bwd_match_plain(dev, m, c):
     """K9: y within one bf16 step (1e-2 of the largest value), mean to
     1e-5 and inv to 1e-4 (Triton's rsqrt) relative. K10: dx within one
     bf16 step, dscale and dbias to f32 summation order (1e-3 of the
     largest value); two launches give the same bits. M is not a multiple
-    of any row block; (1, 768) is one block of one row, the last three are
-    Swin-L norms of a 352x906 batch of 4."""
+    of any row block; (1, 768) is one block of one row, the next three are
+    Swin-L norms of a 352x906 batch of 4. Then every kind of width: C = 1,
+    C % 8 != 0 (K10 on rows staged to ceil8(C)), C above 3072 in K10's
+    ring, above its ring (the wide variant), and above K9's one-program
+    row (its looped variant), up to 65536."""
     g = torch.Generator(device=dev).manual_seed(8)
     x = _rand(g, dev, m, c, scale=2.0, dtype=torch.bfloat16) + 0.5
     dy = _rand(g, dev, m, c, dtype=torch.bfloat16)
@@ -319,6 +324,60 @@ def test_layernorm_fwd_bwd_match_plain(dev, m, c):
     assert (dx.float() - rdx.float()).abs().max() <= 1e-2 * rdx.float().abs().max()
     for a, b_ in ((ds, rds), (db, rdb)):
         assert (a - b_).abs().max() <= 1e-3 * b_.abs().max()
+
+
+@pytest.mark.parametrize("c", [768, 100])
+def test_layernorm_module_offset_view_launches_kernels(dev, c, monkeypatch):
+    """``LayerNorm(c, dtype=bf16)`` on a bf16 view one element into its
+    storage (not on 16 bytes) runs forward and backward through exactly one
+    K9 and one K10 launch (``LayerNormBF16`` copies the view to a 16-byte
+    boundary; at C = 100 K10 stages the rows too) and matches the same
+    module on the CPU (plain versions): y and dx within one bf16 step,
+    dweight and dbias within 1e-3 of the largest value. The plain versions
+    are replaced by a trap while the card runs: no CUDA input reaches
+    them."""
+    from diffusiondepth_tpu_torch.models.common import LayerNorm
+
+    m = 1001
+    g = torch.Generator().manual_seed(9)
+    mods = [LayerNorm(c, dtype=torch.bfloat16) for _ in range(2)]
+    with torch.no_grad():
+        mods[0].weight.copy_(1 + 0.2 * torch.randn(c, generator=g))
+        mods[0].bias.copy_(0.1 * torch.randn(c, generator=g))
+    mods[1].load_state_dict(mods[0].state_dict())
+    mods[0].to(dev)
+    x = (2 * torch.randn(m, c, generator=g) + 0.5).to(torch.bfloat16)
+    dy = torch.randn(m, c, generator=g).to(torch.bfloat16)
+    res = []
+    for mod, d in zip(mods, (dev, torch.device("cpu"))):
+        store = torch.zeros(m * c + 1, dtype=torch.bfloat16, device=d)
+        store[1:] = x.reshape(-1).to(d)
+        store.requires_grad_()
+        xv = store[1:].view(m, c)
+        if d.type == "cuda":
+            assert xv.data_ptr() % 16 != 0
+            with monkeypatch.context() as mp:
+                for name in ("layernorm_fwd_plain", "layernorm_bwd_plain"):
+                    mp.setattr(ln, name, _trap(name))
+                n0 = dict(LAUNCHES)
+                y = mod(xv)
+                y.backward(dy.to(d))
+                torch.cuda.synchronize()
+                assert {k: LAUNCHES[k] - n0[k] for k in LAUNCHES} == {
+                    k: int(k in ("layernorm_fwd", "layernorm_bwd")) for k in LAUNCHES}
+        else:
+            y = mod(xv)
+            y.backward(dy)
+        res.append([t.float().cpu() for t in (y.detach(), store.grad[1:].view(m, c),
+                                               mod.weight.grad, mod.bias.grad)])
+    for (a, b_), tol in zip(zip(*res), (1e-2, 1e-2, 1e-3, 1e-3)):
+        assert (a - b_).abs().max() <= tol * b_.abs().max()
+
+
+def _trap(name):
+    def fn(*args, **kwargs):
+        raise AssertionError(f"{name} ran on the card")
+    return fn
 
 
 def test_layernorm_bwd_refuses_misaligned(dev):

@@ -1,7 +1,9 @@
 """The port's LayerNorm against the JAX package: the plain versions of
-kernels K9 and K10 against the JAX Pallas kernels in interpret mode, and
-the ``LayerNorm`` module (f32 and bf16 branches) against the JAX module,
-forward and gradients."""
+kernels K9 and K10 against the JAX Pallas kernels in interpret mode (at
+Swin widths, an odd C and a C wider than Swin's 3072), and the
+``LayerNorm`` module (f32 and bf16 branches) against the JAX module,
+forward and gradients, the bf16 branch at every kind of width K9 and K10
+take and on a view that does not start on 16 bytes."""
 
 import numpy as np
 import pytest
@@ -38,11 +40,12 @@ def _ln_inputs(m, c, seed):
     return x, dy, scale, bias
 
 
-@pytest.mark.parametrize("m,c", [(300, 192), (129, 384)])
+@pytest.mark.parametrize("m,c", [(300, 192), (129, 384), (37, 7), (5, 5000)])
 def test_layernorm_fwd_matches_pallas(m, c):
     """Plain K9 == ``layernorm_fwd_pallas`` (interpret mode; M not a
-    multiple of its row block), with the JAX kernel test's tolerances: y
-    0.06 absolute (one bf16 step at |y| ~ 4-8), mean 1e-5, inv 1e-4."""
+    multiple of its row block; C odd and C above 3072 too), with the JAX
+    kernel test's tolerances: y 0.06 absolute (one bf16 step at |y| ~
+    4-8), mean 1e-5, inv 1e-4."""
     x, _, scale, bias = _ln_inputs(m, c, seed=0)
     y_k, mean_k, inv_k = layernorm_fwd_pallas(x, scale, bias, 1e-5, interpret=True)
     y, mean, inv = layernorm_fwd(_t(x), _t(scale), _t(bias), 1e-5)
@@ -62,6 +65,22 @@ def test_layernorm_bwd_matches_pallas():
     dx_k, ds_k, db_k = layernorm_bwd_pallas(x, dy, mean, inv, scale, interpret=True)
     dx, ds, db = layernorm_bwd(_t(x), _t(dy), _t(mean), _t(inv), _t(scale))
     assert dx.dtype == torch.bfloat16
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(dx_k, np.float32), rtol=0,
+                               atol=0.06)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(ds_k), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(db.numpy(), np.asarray(db_k), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("m,c", [(37, 7), (5, 5000)])
+def test_layernorm_bwd_matches_pallas_any_width(m, c):
+    """Plain K10 == ``layernorm_bwd_pallas`` (interpret mode) at an odd C
+    and at a C above 3072, with ``test_layernorm_bwd_matches_pallas``'s
+    tolerances."""
+    x, dy, scale, bias = _ln_inputs(m, c, seed=3)
+    _, mean, inv = _ln_jnp_fwd(x, scale, bias, 1e-5)
+    dx_k, ds_k, db_k = layernorm_bwd_pallas(x, dy, mean, inv, scale, interpret=True)
+    dx, ds, db = layernorm_bwd(_t(x), _t(dy), _t(mean), _t(inv), _t(scale))
+    assert dx.dtype == torch.bfloat16 and dx.shape == (m, c) and ds.shape == db.shape == (c,)
     np.testing.assert_allclose(dx.float().numpy(), np.asarray(dx_k, np.float32), rtol=0,
                                atol=0.06)
     np.testing.assert_allclose(ds.numpy(), np.asarray(ds_k), rtol=2e-2, atol=2e-2)
@@ -100,3 +119,42 @@ def test_layernorm_module_matches_jax(bf16):
         want = np.asarray(want, np.float32)
         assert got.shape == want.shape
         assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("c", [1, 7, 100, 3080, 5000])
+def test_layernorm_bf16_module_any_width_matches_jax(c):
+    """The port's ``LayerNorm(c, dtype=bf16)`` == JAX's
+    ``LayerNorm(dtype=bf16)`` at every kind of width K9 and K10 take on the
+    card (C = 1, odd, C % 8 != 0, above 3072 and above K10's ring): the
+    output and the gradients of the input, the scale and the bias, with
+    ``test_layernorm_module_matches_jax``'s bf16 tolerance (1e-2 of the
+    largest value). The bf16 input is a view one element into its storage,
+    so that ``LayerNormBF16`` copies it to a 16-byte boundary first, as it
+    must before K10 on the card."""
+    rng = np.random.RandomState(c)
+    shape = (3, 5, c)
+    x = (rng.randn(*shape) * 3 + 1).astype(np.float32)
+    dy = rng.randn(*shape).astype(np.float32)
+    params = {"scale": (1 + 0.2 * rng.randn(c)).astype(np.float32),
+              "bias": (0.1 * rng.randn(c)).astype(np.float32)}
+    xb = jnp.asarray(x, jnp.bfloat16)
+    jmod = JLayerNorm(dtype=jnp.bfloat16)
+    jy, vjp = jax.vjp(lambda p, x: jmod.apply({"params": p}, x), params, xb)
+    jgp, jgx = vjp(jnp.asarray(dy, jy.dtype))
+
+    port = LayerNorm(c, dtype=torch.bfloat16)
+    port.load_state_dict(jax_to_state_dict(params))
+    store = torch.zeros(x.size + 1, dtype=torch.bfloat16)
+    store[1:] = _t(xb).reshape(-1)
+    store.requires_grad_()
+    tx = store[1:].view(shape)
+    assert tx.data_ptr() % 16 != 0
+    y = port(tx)
+    y.backward(torch.from_numpy(dy).to(y.dtype))
+    assert y.dtype == torch.bfloat16 and y.shape == shape
+    pairs = ((y.detach(), jy), (store.grad[1:].view(shape), jgx),
+             (port.weight.grad, jgp["scale"]), (port.bias.grad, jgp["bias"]))
+    for got, want in pairs:
+        want = np.asarray(want, np.float32)
+        assert got.shape == want.shape
+        assert np.abs(got.float().numpy() - want).max() <= 1e-2 * np.abs(want).max()

@@ -83,10 +83,15 @@ from diffusiondepth_tpu_torch.training.optim import make_lr_schedule  # noqa: E4
 from diffusiondepth_tpu_torch.training.steps import make_eval_step, make_train_step  # noqa: E402
 from diffusiondepth_tpu_torch.training.train_state import create_train_state  # noqa: E402
 
-from test_torch_parallel_train import (  # noqa: E402
-    DP_GRAD_TOL, DP_METRIC_TOL, DP_TOL, JAX_EVAL_TOL, JAX_TOL, REPO, SEED, _family, _free_port,
+from test_torch_support import (  # noqa: E402
+    DP_GRAD_TOL, DP_METRIC_TOL, DP_TOL, Draws, FixedLatent, close_leaves, free_port, named,
+    rel_err,
 )
-from test_torch_support import Draws, FixedLatent, close_leaves, named, rel_err  # noqa: E402
+from test_torch_support import DP_JAX_EVAL_TOL as JAX_EVAL_TOL  # noqa: E402
+from test_torch_support import DP_JAX_TOL as JAX_TOL  # noqa: E402
+from test_torch_support import DP_REPO as REPO  # noqa: E402
+from test_torch_support import DP_SEED as SEED  # noqa: E402
+from test_torch_support import dp_family as _family  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -140,7 +145,7 @@ def ranks_out(tmp_path_factory):
         env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
         proc = subprocess.run([sys.executable,
                                str(REPO / "tests" / "test_torch_parallel_support.py"),
-                               str(case_dir), str(_free_port()), str(n)],
+                               str(case_dir), str(free_port()), str(n)],
                               capture_output=True, text=True, timeout=300, env=env)
         assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
 
