@@ -3322,36 +3322,28 @@ def main() -> int:
                        "window_attention": sum(SWIN_L["depths"]) * n_req})
         check(launches == expect, f"launch counts {launches} != {expect}")
         path_launches["serve"] = launches
-        # where the time of one request goes, device time by part
-        def request_parts(model, batch, g):
-            head = model.depth_head
-            parts = {}
+        # where the time of one request goes: the program's spans
+        # (diffusiondepth_tpu_torch/trace.py) over one request under
+        # torch.profiler, device ms summed by span name (the sampler's steps
+        # over all steps), the request's host ms and host-to-card copies
+        def request_parts(step, batch, g):
+            from torch.profiler import ProfilerActivity, profile
 
-            def part(name, fn):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn()
-                end.record()
+            from diffusiondepth_tpu_torch import trace
+
+            with profile(activities=[ProfilerActivity.CUDA]):
+                step(batch, generator=g)
                 sync()
-                parts[name] = start.elapsed_time(end)
-                return out
-
-            with torch.no_grad():
-                fp = part("backbone_ms", lambda: model.depth_backbone(batch["rgb"]))
-                gt_t = part("depth_encode_ms", lambda: head.depth_transform.t(batch["gt"]))
-                cond = part("hahi_fpn_upsample_ms", lambda: head.model.upsample_condition(
-                    head.fpn_condition(head.hahineck(fp) if head.use_hahi else fp),
-                    gt_t.shape[1:3]))
-                lat = part("sampler_ms", lambda: head._sample(
-                    cond, (B, gt_t.shape[1], gt_t.shape[2], 16), g)[0])
-                part("depth_decode_ms", lambda: head.depth_transform.inv_t(lat))
-            del fp, cond, lat
-            sync()
+            parts = {}
+            for s in trace.spans():
+                parts[f"{s.name}_ms"] = parts.get(f"{s.name}_ms", 0.0) + s.device_ms
+                if s.name == "request":
+                    parts["request_host_ms"] = s.host_ms
+                    parts["h2d_copies"] = s.counters["h2d_copies"]
             return parts
 
         emit({"phase": "breakdown", "request": "bs8 352x1216, 20 steps",
-              **request_parts(model, batches[0], dgen)})
+              **request_parts(step, batches[0], dgen)})
 
         emit({"phase": "serve", "config": "Diffusion_DCbase_ swin_large_naive_l4w722422k "
               "DDIMDepthEstimate_Swin_ADDHAHI O1", "batch": B, "image": [H_IMG, W_IMG],
@@ -4029,7 +4021,7 @@ def main() -> int:
                    "frames_per_s": B * n_req / (sum(s_ms) / 1e3),
                    "max_memory_allocated_gb": s_peak, "metric_rows": s_rows,
                    "launches_per_request": s_launches, "expected_launches": full}
-            rec["breakdown"] = request_parts(smodel, sbatches[0], sgen)
+            rec["breakdown"] = request_parts(sstep, sbatches[0], sgen)
             # what the card runs for the part named by ``breakdown``
             with torch.no_grad():
                 if breakdown == "backbone":

@@ -15,6 +15,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.native import to_device
+
 
 def make_betas(
     beta_schedule: str = "linear",
@@ -130,7 +132,7 @@ class DDIMSchedule:
         return InferenceTables(timesteps, alpha_t, alpha_prev)
 
     def _sqrt_alphas(self, timesteps: torch.Tensor, like: torch.Tensor):
-        acp = torch.as_tensor(self.alphas_cumprod, dtype=like.dtype, device=like.device)
+        acp = to_device(self.alphas_cumprod, like.device, like.dtype)
         a = acp[timesteps.to(like.device)]
         a = a.reshape(a.shape + (1,) * (like.ndim - a.ndim))
         return torch.sqrt(a), torch.sqrt(1.0 - a)
@@ -159,10 +161,8 @@ class DDIMSchedule:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One DDIM reverse step; returns ``(prev_sample, pred_original)``.
         The alphas may be Python floats or 0-d tensors on the device."""
-        alpha_prod_t = torch.as_tensor(alpha_prod_t, dtype=sample.dtype,
-                                       device=sample.device)
-        alpha_prod_prev = torch.as_tensor(alpha_prod_prev, dtype=sample.dtype,
-                                          device=sample.device)
+        alpha_prod_t = to_device(alpha_prod_t, sample.device, sample.dtype)
+        alpha_prod_prev = to_device(alpha_prod_prev, sample.device, sample.dtype)
         beta_prod_t = 1.0 - alpha_prod_t
         sqrt_alpha_t = torch.sqrt(alpha_prod_t)
         sqrt_beta_t = torch.sqrt(beta_prod_t)
@@ -209,12 +209,11 @@ class DDIMSchedule:
         """The timestep-indexed (diffusers-style) step: the alphas of
         ``timestep`` and of ``timestep - num_train_timesteps //
         num_inference_steps`` (``final_alpha_cumprod`` below 0)."""
-        acp = torch.as_tensor(self.alphas_cumprod, device=sample.device)
-        t = torch.as_tensor(timestep, device=sample.device)
+        acp = to_device(self.alphas_cumprod, sample.device)
+        t = to_device(timestep, sample.device)
         prev_t = t - self.num_train_timesteps // num_inference_steps
         alpha_prev = torch.where(prev_t >= 0, acp[prev_t.clamp_min(0)],
-                                 torch.as_tensor(self.final_alpha_cumprod, dtype=acp.dtype,
-                                                 device=acp.device))
+                                 to_device(self.final_alpha_cumprod, acp.device, acp.dtype))
         return self.step_from_alphas(model_output, sample, acp[t], alpha_prev, eta,
                                      use_clipped_model_output, variance_noise)
 
@@ -244,9 +243,9 @@ class DDIMSchedule:
             latent = torch.randn(shape, generator=generator, dtype=dtype,
                                  device=generator.device if generator is not None else "cpu")
         x = latent.to(dtype)
-        ts = torch.from_numpy(tables.timesteps).to(x.device)
-        a_t = torch.from_numpy(tables.alpha_prod_t).to(x.device, x.dtype)
-        a_prev = torch.from_numpy(tables.alpha_prod_prev).to(x.device, x.dtype)
+        ts = to_device(tables.timesteps, x.device)
+        a_t = to_device(tables.alpha_prod_t, x.device, x.dtype)
+        a_prev = to_device(tables.alpha_prod_prev, x.device, x.dtype)
         traj = []
         for i in range(len(tables.timesteps)):
             vnoise = (torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ...ops.cbam import CBAMWithPosEmbed
 from ...registry import BACKBONES
+from ...trace import span
 from ..common import BatchNorm2d, conv2d_nhwc
 
 
@@ -122,8 +123,9 @@ class ResNetForMMBEV(nn.Module):
         """(B, H, W, 3) -> the four stage outputs. ``generator`` is unused:
         the ResNet draws nothing."""
         feats = []
-        for layer in self.layers:
-            x = layer(x)
+        for i, layer in enumerate(self.layers):
+            with span(f"backbone.stage{i}"):
+                x = layer(x)
             feats.append(x)
         return feats
 

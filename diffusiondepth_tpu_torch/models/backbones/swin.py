@@ -48,12 +48,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ...ops.native import to_device
 from ...ops.window_attention import (
     WindowAttentionQKV, window_attention_einsum, window_attention_split,
 )
 from ...parallel.mesh import draw_rows
 from ...parallel.tensor import whole
 from ...registry import BACKBONES
+from ...trace import span
 from ..common import conv2d_nhwc, drop_path, dropout, layer_norm, linear
 
 _WARNED = set()
@@ -158,7 +160,10 @@ class WindowMSA(nn.Module):
         drops = drops or {}
         attn_keep = drops.get("attn")
         qkv = linear(x, self.qkv, self.dtype)
-        bias = whole(self.relative_position_bias_table)[self.relative_position_index]
+        table = whole(self.relative_position_bias_table)
+        # the index buffer is made from numpy and stays on the host (build_model
+        # places only what torch makes on the device): a copy at each call
+        bias = table[to_device(self.relative_position_index, table.device)]
         bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
         fused = self.fused_qkv_attention and not self.use_pallas
         if fused and attn_keep is not None:
@@ -404,11 +409,12 @@ class SwinTransformer(nn.Module):
                         < 1.0 - self.drop_rate, self.drop_rate)
         outs = []
         for i, stage in enumerate(self.stages):
-            for blk in stage.blocks:
-                x = self._block(blk, x, generator)
-            outs.append(layer_norm(x, getattr(self, f"norm{i}"), self.dtype))
-            if stage.downsample is not None:
-                x = stage.downsample(x)
+            with span(f"backbone.stage{i}"):
+                for blk in stage.blocks:
+                    x = self._block(blk, x, generator)
+                outs.append(layer_norm(x, getattr(self, f"norm{i}"), self.dtype))
+                if stage.downsample is not None:
+                    x = stage.downsample(x)
         return outs
 
 

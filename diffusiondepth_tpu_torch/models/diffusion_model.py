@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..registry import BACKBONES, HEADS
+from ..trace import span
 from .backbones import mmbev_resnet, mpvit, swin  # noqa: F401  (register the backbones)
 from .heads import ddim_head  # noqa: F401  (registers the heads)
 from .nlspn import NLSPNModel
@@ -70,7 +71,8 @@ class Diffusion_DCbase_Model(nn.Module):
         uses batch statistics, the backbone draws its drop-path masks and
         the head its ddim_loss draws from ``generator``, and the output
         holds ``ddim_loss``."""
-        fp = self.depth_backbone(sample["rgb"], generator=generator)
+        with span("backbone"):
+            fp = self.depth_backbone(sample["rgb"], generator=generator)
         return self.depth_head(fp, gt_depth_map=sample.get("gt"),
                                init_latent=init_latent, generator=generator)
 

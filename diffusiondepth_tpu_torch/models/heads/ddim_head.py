@@ -43,9 +43,11 @@ import torch.nn as nn
 
 from ...diffusion.ddim import DDIMSchedule
 from ...ops.fused_denoiser import FusedSamplerStep, ddim_step, denoiser_chain
+from ...ops.native import to_device
 from ...ops.resize import adaptive_avg_pool2d
 from ...parallel.mesh import draw_rows
 from ...registry import HEADS
+from ...trace import span
 from ..common import ConvBNAct, DeconvBNAct
 from ..depth_transform import build_depth_transform
 from .denoiser import ScheduledCNNRefine
@@ -115,50 +117,61 @@ class DDIMDepthEstimateHead(nn.Module):
                 init_latent: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
         """The refined latent and, for a ``vis`` head, each step's latent."""
-        dev = cond_latent.device
-        traj = [] if self.vis else None
-        ts = (self.schedule.biased_timesteps(self.inference_steps)
-              if self.timestep_schedule == "biased" else None)
-        tables = self.schedule.inference_tables(self.inference_steps, ts)
-        timesteps = torch.from_numpy(tables.timesteps).to(dev)
-        if init_latent is not None:
-            x = init_latent.to(device=dev, dtype=torch.float32).contiguous()
-        else:
-            x = draw_rows(torch.randn, latent_shape, generator=generator, device=dev,
-                          dtype=torch.float32)
+        with span("sampler"):
+            dev = cond_latent.device
+            traj = [] if self.vis else None
+            fused = self.model.fused_active(latent_shape[1])
+            with span("sampler.tables"):  # with their copies, the time embeddings, the latent
+                ts = (self.schedule.biased_timesteps(self.inference_steps)
+                      if self.timestep_schedule == "biased" else None)
+                tables = self.schedule.inference_tables(self.inference_steps, ts)
+                timesteps = to_device(tables.timesteps, dev)
+                if init_latent is not None:
+                    x = init_latent.to(device=dev, dtype=torch.float32).contiguous()
+                else:
+                    x = draw_rows(torch.randn, latent_shape, generator=generator, device=dev,
+                                  dtype=torch.float32)
+                if fused:
+                    sched = to_device(tables.sched(), dev)
+                    cond = cond_latent.to(torch.bfloat16).contiguous()
+                    te_all = self.model.time_embed(timesteps)  # (steps, C) bf16
+                else:
+                    a_t = to_device(tables.alpha_prod_t, dev)
+                    a_prev = to_device(tables.alpha_prod_prev, dev)
 
-        if self.model.fused_active(latent_shape[1]):  # epsilon prediction, no clipping
-            sched = torch.from_numpy(tables.sched()).to(dev)
-            cond = cond_latent.to(torch.bfloat16).contiguous()
-            te_all = self.model.time_embed(timesteps)  # (steps, C) bf16
-            b = x.shape[0]
-            if self.training:  # the (f32, bf16) latent pair, differentiable
-                flat = self.model.chain_flat()
-                xb = x.to(torch.bfloat16)
+            if fused:  # epsilon prediction, no clipping
+                b = x.shape[0]
+                if self.training:  # the (f32, bf16) latent pair, differentiable
+                    flat = self.model.chain_flat()
+                    xb = x.to(torch.bfloat16)
+                    for i in range(len(tables.timesteps)):
+                        te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
+                        x, xb = FusedSamplerStep.apply(x, xb, cond, te_b, sched[i], *flat)
+                        if traj is not None:
+                            traj.append(x)
+                    return x, traj
+                params = self.model.chain_params()
                 for i in range(len(tables.timesteps)):
-                    te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
-                    x, xb = FusedSamplerStep.apply(x, xb, cond, te_b, sched[i], *flat)
+                    with span("sampler.step"):
+                        with span("sampler.denoise"):
+                            te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
+                            u6, a3, b3 = denoiser_chain(params, x.to(torch.bfloat16), cond, te_b)
+                        with span("sampler.update"):
+                            x = ddim_step(u6, a3, b3, x, sched[i])
                     if traj is not None:
                         traj.append(x)
                 return x, traj
-            params = self.model.chain_params()
+
             for i in range(len(tables.timesteps)):
-                te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
-                u6, a3, b3 = denoiser_chain(params, x.to(torch.bfloat16), cond, te_b)
-                x = ddim_step(u6, a3, b3, x, sched[i])
+                with span("sampler.step"):
+                    with span("sampler.denoise"):
+                        eps = self.model(x, timesteps[i], cond_latent).float()
+                    with span("sampler.update"):
+                        x, _ = self.schedule.step_from_alphas(eps, x, a_t[i], a_prev[i], eta=0.0,
+                                                              use_clipped_model_output=True)
                 if traj is not None:
                     traj.append(x)
             return x, traj
-
-        a_t = torch.from_numpy(tables.alpha_prod_t).to(dev)
-        a_prev = torch.from_numpy(tables.alpha_prod_prev).to(dev)
-        for i in range(len(tables.timesteps)):
-            eps = self.model(x, timesteps[i], cond_latent).float()
-            x, _ = self.schedule.step_from_alphas(eps, x, a_t[i], a_prev[i], eta=0.0,
-                                                  use_clipped_model_output=True)
-            if traj is not None:
-                traj.append(x)
-        return x, traj
 
     def _ddim_loss(self, refined_latent: torch.Tensor, cond_latent: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
@@ -185,21 +198,27 @@ class DDIMDepthEstimateHead(nn.Module):
         if gt_depth_map is None:
             raise ValueError("gt_depth_map sizes the sampling latent (reference quirk); "
                              "pass zeros at pure inference")
-        gt_map_t = self.depth_transform.t(gt_depth_map)
-        if self.use_hahi:
-            fp = self.hahineck(fp, generator=generator)
-        cond = self.fpn_condition(fp)
-        cond_latent = self.model.upsample_condition(cond, gt_map_t.shape[1:3])
+        with span("condition"):
+            with span("condition.encode"):
+                gt_map_t = self.depth_transform.t(gt_depth_map)
+            if self.use_hahi:
+                with span("condition.neck"):
+                    fp = self.hahineck(fp, generator=generator)
+            with span("condition.fpn"):
+                cond = self.fpn_condition(fp)
+            with span("condition.upsample"):
+                cond_latent = self.model.upsample_condition(cond, gt_map_t.shape[1:3])
         latent_shape = (gt_map_t.shape[0], gt_map_t.shape[1], gt_map_t.shape[2],
                         self.depth_feature_dim)
         refined, traj = self._sample(cond_latent, latent_shape, generator, init_latent)
-        pred = self.depth_transform.inv_t(refined)
-        pred_inter = None
-        if traj is not None:  # every step's latent decoded in one batched call
-            n, b = len(traj), traj[0].shape[0]
-            flat = torch.stack(traj).flatten(0, 1)
-            pred_inter = self.depth_transform.inv_t(flat, running=True)
-            pred_inter = pred_inter.reshape(n, b, *pred_inter.shape[1:])
+        with span("decode"):
+            pred = self.depth_transform.inv_t(refined)
+            pred_inter = None
+            if traj is not None:  # every step's latent decoded in one batched call
+                n, b = len(traj), traj[0].shape[0]
+                flat = torch.stack(traj).flatten(0, 1)
+                pred_inter = self.depth_transform.inv_t(flat, running=True)
+                pred_inter = pred_inter.reshape(n, b, *pred_inter.shape[1:])
         return {
             "pred": pred,
             "pred_init": gt_map_t,

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ...ops.fused_denoiser import (
     CHAIN_KEYS, CONV_KEYS, FusedDenoiser, chain_params_from_flat,
 )
+from ...ops.native import to_device
 from ...ops.resize import resize_bilinear
 from ...parallel.tensor import whole
 from ..common import conv2d_nhwc, group_norm_nhwc
@@ -94,7 +95,7 @@ class ScheduledCNNRefine(nn.Module):
         indexing with a 0-d tensor reads its value on the host (a sync per
         step on the card, a data-dependent size under ``torch.export``)."""
         w = whole(self.time_embedding.weight)
-        idx = torch.as_tensor(t, device=w.device)
+        idx = to_device(t, w.device)
         te = w.index_select(0, idx.reshape(-1))
         te = te[0] if idx.ndim == 0 else te
         return te.to(self.dtype) if self.dtype is not None else te

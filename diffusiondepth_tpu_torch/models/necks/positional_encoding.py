@@ -17,6 +17,8 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from ...ops.native import to_device
+
 
 @functools.lru_cache(maxsize=None)
 def sine_positional_encoding(h: int, w: int, num_feats: int = 256,
@@ -54,7 +56,7 @@ class TensorCache:
         full = key + (torch.device(device), dtype)
         t = self._tables.get(full)
         if t is None:
-            t = torch.from_numpy(make()).to(device=device, dtype=dtype)
+            t = to_device(make(), device, dtype)
             if not torch.compiler.is_compiling():
                 self._tables[full] = t
         return t

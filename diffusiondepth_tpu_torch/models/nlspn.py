@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..ops.deform_conv import modulated_deform_conv
 from ..ops.msda import bilinear_sample_nhwc
+from ..ops.native import to_device
 from ..ops.stencil_prop import build_stencil, stencil_apply
 from .common import BatchNorm2d, ConvBNAct, DeconvBNAct, conv2d_nhwc
 
@@ -142,8 +143,8 @@ class NLSPNPropagation(nn.Module):
             if self.args.legacy:
                 # pre-ECCV20 checkpoints bake the tap displacement in
                 half = (self.k_f - 1) / 2
-                disp = torch.tensor([[k // self.k_f - half, k % self.k_f - half] for k in taps],
-                                    dtype=off_sample.dtype, device=off_sample.device)
+                disp = to_device([[k // self.k_f - half, k % self.k_f - half] for k in taps],
+                                 off_sample.device, off_sample.dtype)
                 off_sample = off_sample + disp
             ys = (torch.arange(h, device=guidance.device)[None, :, None, None]
                   + off_sample[..., 0]).reshape(b, -1)

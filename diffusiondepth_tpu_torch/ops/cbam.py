@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.common import ConvBNAct, conv2d_nhwc, linear
+from .native import to_device
 
 
 class ChannelAttention(nn.Module):
@@ -87,7 +88,7 @@ class CBAMWithPosEmbed(nn.Module):
         yy, xx = torch.meshgrid(torch.arange(h, device=x.device),
                                 torch.arange(w, device=x.device), indexing="ij")
         pos = torch.stack([xx, yy], dim=-1).to(dt)
-        pos = pos / torch.tensor([w, h], dtype=dt, device=x.device) - 0.5
+        pos = pos / to_device([w, h], x.device, dt) - 0.5
         f = F.relu(linear(pos, self.pos_embed[0], self.dtype))
         f = F.relu(linear(f, self.pos_embed[1], self.dtype))
         x_r = x_r + f[None]

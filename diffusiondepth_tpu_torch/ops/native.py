@@ -9,7 +9,10 @@ module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name. A wrapper adds one
 exactly where it launches its kernel; calls that take the plain PyTorch
-version (CPU tensors) add nothing. ``triton_module`` loads a Triton source
+version (CPU tensors) add nothing. ``H2D`` counts the copies of host data
+to the card that the program makes at each call, and their bytes: every
+such copy goes through ``to_device``. Both are read per span by
+``trace.py``. ``triton_module`` loads a Triton source
 of ``csrc/`` the same way, at first use.
 """
 
@@ -22,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -39,6 +42,8 @@ LAUNCHES: Dict[str, int] = {
     "window_attention_split": 0, "layernorm_fwd": 0, "layernorm_bwd": 0,
 }
 
+H2D: Dict[str, int] = {"h2d_copies": 0, "h2d_bytes": 0}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _TRITON: Dict[str, object] = {}
 
@@ -46,6 +51,19 @@ _TRITON: Dict[str, object] = {}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def to_device(data, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``data`` (an array, a number or a tensor) as a tensor of ``dtype``
+    on ``device``: made on the host, then copied. A copy from the host to
+    another device is counted in ``H2D``; a tensor already on a device
+    stays there (cast to ``dtype``)."""
+    host = torch.as_tensor(data, dtype=dtype)
+    out = host.to(device)
+    if host.device.type == "cpu" and out.device.type != "cpu":
+        H2D["h2d_copies"] += 1
+        H2D["h2d_bytes"] += out.nbytes
+    return out
 
 
 def no_autograd(kernel: str, *tensors) -> None:

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .native import to_device
+
 
 @functools.lru_cache(maxsize=None)
 def _bilinear_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
@@ -53,8 +55,8 @@ def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _apply_hw_matrices(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
-    mh = torch.as_tensor(mh, device=x.device).to(x.dtype)
-    mw = torch.as_tensor(mw, device=x.device).to(x.dtype)
+    mh = to_device(mh, x.device).to(x.dtype)
+    mw = to_device(mw, x.device).to(x.dtype)
     x = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("ow,bhwc->bhoc", mw, x)
 
@@ -91,8 +93,8 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     h_out, w_out = size
     if (h_in, w_in) == (h_out, w_out):
         return x
-    rows = torch.as_tensor(_nearest_index(h_in, h_out), device=x.device)
-    cols = torch.as_tensor(_nearest_index(w_in, w_out), device=x.device)
+    rows = to_device(_nearest_index(h_in, h_out), x.device)
+    cols = to_device(_nearest_index(w_in, w_out), x.device)
     return x.index_select(1, rows).index_select(2, cols)
 
 

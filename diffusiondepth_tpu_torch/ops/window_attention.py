@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from . import native
+from .native import to_device
 
 HEAD_DIM = 32
 MAX_TOKENS = 64
@@ -60,7 +61,7 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
     d = c // num_heads
     dt = qkv.dtype
     q6 = qkv.reshape(b, nw, n, 3, num_heads, d)
-    sc = torch.tensor(scale, dtype=dt, device=qkv.device)
+    sc = to_device(scale, qkv.device, dt)
     q = (q6[..., 0, :, :] * sc).float()
     k = q6[..., 1, :, :].float()
     v = q6[..., 2, :, :].float()
@@ -90,7 +91,7 @@ def window_attention_einsum(qkv: torch.Tensor, bias: torch.Tensor,
     c = c3 // 3
     dt = qkv.dtype
     q, k, v = qkv.reshape(b, nw, n, 3, num_heads, c // num_heads).unbind(3)
-    q = q * torch.tensor(scale, dtype=dt, device=qkv.device)
+    q = q * to_device(scale, qkv.device, dt)
     attn = torch.einsum("bwqhd,bwkhd->bwhqk", q, k) + bias.to(dt)[None, None]
     if mask is not None:
         attn = attn + mask.to(dt)[None, :, None]
@@ -179,7 +180,7 @@ def window_attention_bwd_plain(qkv: torch.Tensor, bias: torch.Tensor,
     d = c // num_heads
     dt = qkv.dtype
     q6 = qkv.reshape(b, nw, n, 3, num_heads, d)
-    sc = torch.tensor(scale, dtype=dt, device=qkv.device)
+    sc = to_device(scale, qkv.device, dt)
     qs = (q6[..., 0, :, :] * sc).float()
     q, k, v = (q6[..., i, :, :].float() for i in range(3))
     attn = torch.einsum("bwqhd,bwkhd->bwhqk", qs, k) + bias.float()[None, None]
@@ -279,7 +280,7 @@ def window_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     to the input type before P.v, and P.v accumulates in f32. Returns
     (B, nW, H, N, D) in the input type."""
     dt = q.dtype
-    sc = torch.tensor(scale, dtype=dt, device=q.device)
+    sc = to_device(scale, q.device, dt)
     attn = torch.einsum("bwhnd,bwhmd->bwhnm", (q * sc).float(), k.float())
     attn = attn + bias.float()[None, None]
     if mask is not None:

@@ -63,6 +63,8 @@ import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
+from ..ops.native import to_device
+
 # how long a collective (the rendezvous too) may wait before it raises
 TIMEOUT_S = 1800
 
@@ -331,7 +333,7 @@ def shard_batch(batch: Dict, mesh: Mesh, accum_steps: int = 1) -> Dict:
         if getattr(v, "ndim", 0) == 0:
             out[k] = v
         elif torch.is_tensor(v):
-            out[k] = v.index_select(0, torch.from_numpy(rows).to(v.device))
+            out[k] = v.index_select(0, to_device(rows, v.device))
         else:
             out[k] = v[rows]
     return out

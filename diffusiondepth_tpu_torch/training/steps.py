@@ -39,6 +39,7 @@ import torch
 from ..metrics.depth_metrics import evaluate_depth_metrics
 from ..parallel.mesh import Mesh, activate, all_reduce_grads, all_reduce_sum, gather_rows
 from ..parallel.tensor import COMM, StateSharding, check_sharded_as, sync_whole_grads
+from ..trace import span
 
 
 def make_train_step(model, loss_computer, optimizer, accum_steps: int = 1,
@@ -165,34 +166,40 @@ def make_eval_step(model, tta_flip: bool = False, extra_keys: Sequence[str] = ()
     extras are every data rank's rows in data order (the host batch's).
     A model sharded by ``parallel.shard_state`` runs its sharded layers as
     training does; the result is the whole state's (JAX replicates the
-    state for eval)."""
+    state for eval).
+
+    Under a ``torch.profiler`` session a call records the spans of
+    ``trace.py``: ``request`` around it all, and the model's own inside."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None,
                   init_latent: Optional[torch.Tensor] = None):
-        model.eval()  # a train step between two eval steps puts it in training mode
-        with activate(mesh, segments=2 if tta_flip else 1):
-            if tta_flip:
-                b = batch["rgb"].shape[0]
-                flipped = _hflip_batch(batch)
-                both = {k: torch.cat([v, flipped[k]]) if torch.is_tensor(v) and v.ndim >= 1
-                        else v for k, v in batch.items()}
-                if init_latent is not None and init_latent.shape[0] != 2 * b:
-                    raise ValueError(f"flip-TTA runs a batch of {2 * b}: init_latent has "
-                                     f"{init_latent.shape[0]} rows")
-                out = model(both, init_latent=init_latent, generator=generator)
-                out = dict(out, pred=0.5 * (out["pred"][:b]
-                                            + torch.flip(out["pred"][b:], dims=(2,))))
-            else:
-                out = model(batch, init_latent=init_latent, generator=generator)
-            metric_val = evaluate_depth_metrics(batch, out)
-        extras = {k: out[k] for k in extra_keys if out.get(k) is not None}
-        pred = out["pred"]
-        if gather:
-            b = pred.shape[0]
-            pred = gather_rows(pred, mesh)
-            extras = {k: _gather_extra(v, b, mesh) for k, v in extras.items()}
-        return pred, metric_val, extras
+        with span("request"):
+            with span("eval_mode"):  # a walk over every module: milliseconds on the host
+                model.eval()  # a train step between two eval steps puts it in training mode
+            with activate(mesh, segments=2 if tta_flip else 1):
+                if tta_flip:
+                    b = batch["rgb"].shape[0]
+                    flipped = _hflip_batch(batch)
+                    both = {k: torch.cat([v, flipped[k]]) if torch.is_tensor(v) and v.ndim >= 1
+                            else v for k, v in batch.items()}
+                    if init_latent is not None and init_latent.shape[0] != 2 * b:
+                        raise ValueError(f"flip-TTA runs a batch of {2 * b}: init_latent has "
+                                         f"{init_latent.shape[0]} rows")
+                    out = model(both, init_latent=init_latent, generator=generator)
+                    out = dict(out, pred=0.5 * (out["pred"][:b]
+                                                + torch.flip(out["pred"][b:], dims=(2,))))
+                else:
+                    out = model(batch, init_latent=init_latent, generator=generator)
+                with span("metrics"):
+                    metric_val = evaluate_depth_metrics(batch, out)
+            extras = {k: out[k] for k in extra_keys if out.get(k) is not None}
+            pred = out["pred"]
+            if gather:
+                b = pred.shape[0]
+                pred = gather_rows(pred, mesh)
+                extras = {k: _gather_extra(v, b, mesh) for k, v in extras.items()}
+            return pred, metric_val, extras
 
     return eval_step

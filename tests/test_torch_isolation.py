@@ -134,7 +134,7 @@ def test_data_layer_runs_without_h5py_cv2_or_pil():
 
 # the deployment and accounting tools, each with a --help
 _TOOLS = ("convert_checkpoint", "export_model", "serve", "eval_parity", "flops",
-          "analyze_trace", "prepare_kitti", "serve_ab")
+          "analyze_trace", "prepare_kitti")
 
 _TOOLS_WITHOUT_JAX = """
 import contextlib, importlib.abc, io, json, runpy, sys
