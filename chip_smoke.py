@@ -16,14 +16,16 @@ Phases, one JSON line each:
 3. kernel  - every kernel against its plain PyTorch version at the
              flagship shapes, in bf16. Eval: the conv link (K1) at its six
              configurations on the (8, 176, 608) latent, and again on the
-             (4, 176, 453) latent of a training micro-batch, the DDIM step
+             (4, 176, 453) latent of a training micro-batch, then the 'add'
+             chain's four links (ADD_LINKS: pr0 with GroupNorm, ReLU,
+             condition, te and statistics) at both latents, the DDIM step
              (K3) on the eval latent, window attention (K4) at the four
              Swin-L stages of a 352x1216 batch of 8, plain and shifted, and
              again at those of a 352x906 batch of 4 (training). Training:
              the scheduler step (K2) and its backward (K6) on the
              (4, 176, 453) latent, the conv-link backward (K5) at its six
-             configurations there (run twice: the two results must be
-             bit-equal), the window-attention backward (K7) at the four
+             configurations there and at the 'add' chain's four (run
+             twice: the two results must be bit-equal), the window-attention backward (K7) at the four
              Swin-L stages of a 352x906 batch of 4, plain and shifted.
              The X4 model's quarter-resolution latents: K1 and K3 on
              (8, 88, 304) (serve), K1, K2, K6 and K5 (two launches
@@ -108,9 +110,9 @@ Phases, one JSON line each:
              reference's tolerances;
 9. serve-res50 - bench.py's res50 cell (mmbev_res50 + DDIMDepthEstimate_Res,
              bf16, 20 steps, 8 x 352x1216): 3 requests after one warm-up,
-             latency, frames/s, peak memory, the metric rows, and exactly 0
-             launches of every kernel per request (the 'add' denoiser runs
-             on cuDNN);
+             latency, frames/s, peak memory, the metric rows, and exactly 80
+             K1 and 20 K3 per request and 0 of every other kernel (the
+             'add' denoiser's four-link chain);
    serve-mpvit_small - bench.py's mpvit_small cell (mpvit_small +
              DDIMDepthEstimate_MPVIT_ADDHAHI, same batches): 3 requests
              after one warm-up, exactly 120 K1 and 20 K3 per request and 0
@@ -297,6 +299,14 @@ LINKS = [  # (name, cin, cout, gn+relu in, add+te, stats out)
     ("fa", 256, 256, True, True, False),
     ("fb", 256, 256, False, False, False),
     ("pr0", 256, 64, False, False, True),
+    ("pr1", 64, 16, True, False, True),
+]
+# the 'add' denoiser's four links: no fusion convs, so pr0 takes GroupNorm-1,
+# the ReLU, the condition and te on its input and emits its statistics
+ADD_LINKS = [
+    ("ne0", 16, 64, False, False, True),
+    ("ne1", 64, 256, True, False, True),
+    ("pr0", 256, 64, True, True, True),
     ("pr1", 64, 16, True, False, True),
 ]
 
@@ -2502,10 +2512,10 @@ def main() -> int:
     _conv_link_lib()  # checks the library's block against CONV_LINK_BLOCK_PIXELS
     k1_bm = CONV_LINK_BLOCK_PIXELS  # output pixels per block: one partial each
 
-    def k1_chain(bsz, lh, lw, what):
+    def k1_chain(bsz, lh, lw, what, links=LINKS):
         k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
                   flops=0.0, bytes=0.0)
-        for lname, cin, cout, gn, add, stats in LINKS:
+        for lname, cin, cout, gn, add, stats in links:
             x = randn(bsz, lh, lw, cin, dtype=bf)
             w = randn(3, 3, cin, cout, dtype=bf, scale=(9 * cin) ** -0.5)
             bias = randn(cout, scale=0.1)
@@ -2528,8 +2538,9 @@ def main() -> int:
             # bf16 value (2^-8 relative); 1e-2 of the map's largest value
             tol = 1e-2 * ref
             rec = {"phase": "kernel", "kernel": "conv_link", "shapes": what, "link": lname,
-                   "cin": cin, "cout": cout, "shape": [bsz, lh, lw], "max_abs_err": err,
-                   "tol": tol, "bitwise_repeatable": bitwise}
+                   "cin": cin, "cout": cout, "gn_in": gn, "add_te": add, "stats": stats,
+                   "shape": [bsz, lh, lw], "max_abs_err": err, "tol": tol,
+                   "bitwise_repeatable": bitwise}
             check(math.isfinite(err) and err <= tol, f"conv_link {lname} {what}: {err} > {tol}")
             if stats:
                 sk = ps_k.sum(1)
@@ -2562,7 +2573,7 @@ def main() -> int:
             del x, w, y_k, y_2, y_p, v
         k1["bound_by"] = bound(k1["bytes"], k1["flops"], BF16_FLOPS)[1]
         emit({"phase": "kernel", "kernel": "conv_link", "shapes": what,
-              "what": "one six-link chain", "shape": [bsz, lh, lw], "ms": k1["ms"],
+              "what": f"one {len(links)}-link chain", "shape": [bsz, lh, lw], "ms": k1["ms"],
               "library_ms": k1["library_ms"], "bound_ms": k1["bound_ms"],
               "tflops": k1["flops"] / k1["ms"] / 1e9})
         sync()
@@ -2572,6 +2583,15 @@ def main() -> int:
     k1_train = k1_chain(B_T // ACCUM, H_T // 2, W_T // 2, "train")
     summary["conv_link"].update(train_ms=k1_train["ms"], train_bound_ms=k1_train["bound_ms"],
                                 train_library_ms=k1_train["library_ms"])
+    # the 'add' chain (the Res heads) at the same two latents
+    k1_add = k1_chain(B, H_IMG // 2, W_IMG // 2, "serve-add", ADD_LINKS)
+    k1_add_train = k1_chain(B_T // ACCUM, H_T // 2, W_T // 2, "train-add", ADD_LINKS)
+    summary["conv_link"]["max_abs_err"] = max(summary["conv_link"]["max_abs_err"],
+                                              k1_add["max_abs_err"], k1_add_train["max_abs_err"])
+    summary["conv_link"]["add"] = {
+        "ms": k1_add["ms"], "bound_ms": k1_add["bound_ms"], "library_ms": k1_add["library_ms"],
+        "train_ms": k1_add_train["ms"], "train_bound_ms": k1_add_train["bound_ms"],
+        "train_library_ms": k1_add_train["library_ms"]}
 
     # ---- 3b. K3 DDIM step on the latent, scalars of a mid-trajectory step
     sched_rows = torch.from_numpy(DDIMSchedule().inference_tables(STEPS).sched()).to(dev)
@@ -2750,11 +2770,11 @@ def main() -> int:
         out[:, 4] = 1.0 + randn(bsz, c, scale=0.1)
         return out
 
-    def k5_chain(tb, th_, tw_, what):
+    def k5_chain(tb, th_, tw_, what, links=LINKS):
         k5 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
                   flops=0.0, bytes=0.0)
         k5_pass = {n: 0.0 for n in K5_PASSES}
-        for lname, cin, cout, gn, add, stats in LINKS:
+        for lname, cin, cout, gn, add, stats in links:
             # GroupNorm on the link's output (t-form r) wherever the forward
             # emits its statistics
             r = randn(tb, th_, tw_, cout, dtype=bf, scale=0.01)
@@ -2831,13 +2851,18 @@ def main() -> int:
             del r, u_in, out_k, again, out_p, v, du
         k5["bound_by"] = bound(k5["bytes"], k5["flops"], BF16_FLOPS)[1]
         emit({"phase": "kernel", "kernel": "conv_link_bwd", "shapes": what,
-              "what": "one six-link chain", "shape": [tb, th_, tw_], "ms": k5["ms"],
+              "what": f"one {len(links)}-link chain", "shape": [tb, th_, tw_], "ms": k5["ms"],
               "library_ms": k5["library_ms"], "bound_ms": k5["bound_ms"],
               "tflops": k5["flops"] / k5["ms"] / 1e9, "pass_ms": k5_pass})
         sync()
         return k5
 
     summary["conv_link_bwd"] = k5_chain(tb, H_T // 2, W_T // 2, "train")
+    # the 'add' chain: its pr0 runs GN_NEXT | GN_IN | ADD | TE
+    k5_add = k5_chain(tb, H_T // 2, W_T // 2, "train-add", ADD_LINKS)
+    summary["conv_link_bwd"]["max_abs_err"] = max(summary["conv_link_bwd"]["max_abs_err"],
+                                                  k5_add["max_abs_err"])
+    summary["conv_link_bwd"]["add"] = {f: k5_add[f] for f in ("ms", "bound_ms", "library_ms")}
 
     # ---- 3x4. the kernels of the X4 model at its quarter-resolution
     # latents: K1 and K3 at serve (8, 88, 304); K1, K2, K6 and K5 (two
@@ -4040,7 +4065,8 @@ def main() -> int:
             return s_launches
 
         path_launches["serve-res50"] = serve_cell(
-            "serve-res50", "mmbev_resnet", "mmbev_res50", "DDIMDepthEstimate_Res", {}, "sampler")
+            "serve-res50", "mmbev_resnet", "mmbev_res50", "DDIMDepthEstimate_Res",
+            {"conv_link": 4 * STEPS, "ddim_step": STEPS}, "sampler")
         path_launches["serve-mpvit_small"] = serve_cell(
             "serve-mpvit_small", "mpvit", "mpvit_small", "DDIMDepthEstimate_MPVIT_ADDHAHI",
             {"conv_link": 6 * STEPS, "ddim_step": STEPS}, "backbone")
@@ -4271,7 +4297,7 @@ def main() -> int:
          "plain_ms": summary[k]["plain_ms"], "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"], "library_ms": summary[k]["library_ms"],
          **{x: summary[k][x] for x in ("event_ms", "train_ms", "train_bound_ms",
-                                       "train_library_ms", "x4") if x in summary[k]}}
+                                       "train_library_ms", "x4", "add") if x in summary[k]}}
         for k, src in sources.items()]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

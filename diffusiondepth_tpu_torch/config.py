@@ -153,7 +153,7 @@ class Config:
     # rematerialise each Swin block in the training backward
     remat_backbone: bool = True
     # the denoiser takes the fused conv chain (K1/K5) where its guard holds
-    # ('upsample_add', bf16, latent height % 8 == 0)
+    # ('add' or 'upsample_add', bf16, latent height % 8 == 0)
     fused_denoiser: bool = True
     # comma-separated pyramid channels overriding the head's spec
     head_in_channels: Optional[str] = None

@@ -9,16 +9,18 @@
    no host synchronisation per step;
 5. ``inv_t`` decodes the latent to metric depth.
 
-Where the denoiser's ``fused_active`` holds (the 'upsample_add' heads under
-the bf16 policy) each eval step is the fused denoiser chain (six
-conv-link kernels) and one DDIM-step kernel, the counterpart of the JAX
-eval path's grouped-flat branch; each training step is one
-``FusedSamplerStep`` on the (f32, bf16) latent pair, the counterpart of
-the JAX training branch (``fused_sampler_step``), and gradients flow back
-through all steps. Elsewhere (f32, the 'add' and 'upsample_concat' heads,
-``use_fused_denoiser`` off, a latent height not a multiple of 8) each step
-is the module denoiser and ``DDIMSchedule.step_from_alphas``, the JAX jnp
-path. The latent and all scheduler math stay f32.
+Where the denoiser's ``fused_active`` holds (the 'upsample_add' and 'add'
+heads under the bf16 policy) each eval step is the fused denoiser chain
+(six conv-link kernels for 'upsample_add', four for 'add') and one
+DDIM-step kernel, the counterpart of the JAX eval path's grouped-flat
+branch; each training step is one ``FusedSamplerStep`` on the (f32, bf16)
+latent pair, the counterpart of the JAX training branch
+(``fused_sampler_step``), and gradients flow back through all steps. JAX
+runs 'add' on its jnp path; the port's chain is its own design there.
+Elsewhere (f32, the 'upsample_concat' heads, ``use_fused_denoiser`` off, a
+latent height not a multiple of 8) each step is the module denoiser and
+``DDIMSchedule.step_from_alphas``, the JAX jnp path. The latent and all
+scheduler math stay f32.
 
 The ``vis`` heads also return ``pred_inter`` (steps, B, H, W, 1): every
 step's latent decoded by ``inv_t`` in one batched call, with the running

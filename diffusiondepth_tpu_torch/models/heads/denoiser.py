@@ -14,12 +14,15 @@ runs once, outside the sampling loop). Three fusions:
   noise embedding) through ``upsample_fuse.convA`` (2C -> C) and
   ``upsample_fuse.convB``.
 
-``fused_active(latent_h)`` holds exactly where the JAX package's does
-(``use_fused``, ``'upsample_add'``, the bf16 policy, ``latent_h % 8 ==
-0``); there the six convs run as the fused chain of
-``ops/fused_denoiser.py`` (kernel K1 on the card, ``FusedDenoiser``: its
-backward is kernel K5). Everywhere else the module path below runs, the
-JAX package's jnp path: on the card its convolutions are cuDNN's.
+``fused_active(latent_h)`` holds for ``use_fused``, ``'add'`` or
+``'upsample_add'``, the bf16 policy and ``latent_h % 8 == 0``: the JAX
+package's guard, which takes 'upsample_add' only (its 'add' runs on XLA,
+with no kernel to port), widened to 'add'. There the convs run as the
+fused chain of ``ops/fused_denoiser.py``, six links for 'upsample_add' and
+four for 'add' (kernel K1 on the card, ``FusedDenoiser``: its backward is
+kernel K5). Everywhere else ('upsample_concat', f32, ``use_fused`` off) the
+module path below runs, the JAX package's jnp path: on the card its
+convolutions are cuDNN's.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.fused_denoiser import (
-    CHAIN_KEYS, CONV_KEYS, FusedDenoiser, chain_params_from_flat,
+    CONV_KEYS, FusedDenoiser, chain_keys, chain_params_from_flat,
 )
 from ...ops.native import to_device
 from ...ops.resize import resize_bilinear
@@ -79,8 +82,9 @@ class ScheduledCNNRefine(nn.Module):
 
     def fused_active(self, latent_h: int) -> bool:
         """True when a call on a latent of height ``latent_h`` runs as the
-        fused conv chain: the JAX package's guard without its TPU term."""
-        return (self.use_fused and self.fuse == "upsample_add"
+        fused conv chain: the JAX package's guard without its TPU term,
+        with 'add' beside 'upsample_add'."""
+        return (self.use_fused and self.fuse in ("add", "upsample_add")
                 and self.dtype == torch.bfloat16 and latent_h % 8 == 0)
 
     def upsample_condition(self, cond: torch.Tensor, latent_hw) -> torch.Tensor:
@@ -101,16 +105,21 @@ class ScheduledCNNRefine(nn.Module):
         return te.to(self.dtype) if self.dtype is not None else te
 
     def chain_flat(self) -> List[torch.Tensor]:
-        """The chain's f32 parameters in ``CHAIN_KEYS`` order, (weight,
+        """The chain's f32 parameters in ``chain_keys`` order, (weight,
         bias) each, conv weights as (3, 3, Cin, Cout): the leaves the
-        autograd Functions take. A weight cut over 'model' is gathered
-        whole (``parallel.whole``): K1 and K5 take whole channel sets."""
+        autograd Functions take, with the fusion convs fa and fb where the
+        module has them ('upsample_add'). A weight cut over 'model' is
+        gathered whole (``parallel.whole``): K1 and K5 take whole channel
+        sets."""
+        if self.fuse == "upsample_concat":
+            raise ValueError("the 'upsample_concat' denoiser has no fused chain")
         ne, pr = self.noise_embedding, self.pred
         mods = {"ne0": ne[0], "gn0": ne[1], "ne1": ne[3], "gn1": ne[4],
-                "fa": self.upsample_add.convA.conv, "fb": self.upsample_add.convB.conv,
                 "pr0": pr[0], "gn2": pr[1], "pr1": pr[3], "gn3": pr[4]}
+        if hasattr(self, "upsample_add"):
+            mods.update(fa=self.upsample_add.convA.conv, fb=self.upsample_add.convB.conv)
         flat = []
-        for k in CHAIN_KEYS:
+        for k in chain_keys(2 * len(mods)):
             m = mods[k]
             w = whole(m.weight)
             w = w.permute(2, 3, 1, 0).contiguous() if k in CONV_KEYS else w
@@ -118,7 +127,7 @@ class ScheduledCNNRefine(nn.Module):
         return flat
 
     def chain_params(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-        """Weights of the six links as ``denoiser_chain`` takes them:
+        """Weights of the chain's links as ``denoiser_chain`` takes them:
         conv (3, 3, Cin, Cout) bf16 + f32 bias, GroupNorm f32 (scale, bias).
         They stay in the autograd graph of the f32 parameters. Made once
         per sampling call, outside the step loop."""

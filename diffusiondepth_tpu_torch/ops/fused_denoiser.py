@@ -1,15 +1,18 @@
 """The denoiser conv chain, the DDIM updates and their backward (port of
 ``diffusiondepth_tpu/ops/fused_denoiser.py``).
 
-``ScheduledCNNRefine`` for ``fuse='upsample_add'`` under the bf16 policy is
-six 3x3 conv links with GroupNorm(4) + ReLU between them. Each link runs as
-one pass of ``conv_link`` (kernel K1, ``csrc/conv_link.cu``): it reads the
-previous link's raw conv output, applies the previous GroupNorm as a
-per-(batch, channel) affine, the ReLU and the condition add, convolves,
-adds the bias, and emits per-block (sum y, sum y^2) partials from which
-``gn_affine_from_partials`` builds the next affine. ``ddim_step`` (kernel
-K3, ``csrc/ddim_step.py``) finishes the last GroupNorm + ReLU and applies
-the DDIM update in f32 (eval).
+``ScheduledCNNRefine`` under the bf16 policy is a chain of 3x3 conv links
+with GroupNorm(4) + ReLU between them: six for ``fuse='upsample_add'``
+(ne0, ne1, the fusion convs fa and fb, pr0, pr1), four for ``fuse='add'``
+(the same without fa and fb; the condition add moves into pr0). Which
+chain runs follows from the parameters given: fa and fb present or not.
+Each link runs as one pass of ``conv_link`` (kernel K1,
+``csrc/conv_link.cu``): it reads the previous link's raw conv output,
+applies the previous GroupNorm as a per-(batch, channel) affine, the ReLU
+and the condition add, convolves, adds the bias, and emits per-block (sum
+y, sum y^2) partials from which ``gn_affine_from_partials`` builds the
+next affine. ``ddim_step`` (kernel K3, ``csrc/ddim_step.py``) finishes the
+last GroupNorm + ReLU and applies the DDIM update in f32 (eval).
 
 Training:
 
@@ -223,11 +226,14 @@ def gn_affine_from_partials(ps: torch.Tensor, scale: torch.Tensor,
 
 def chain_forward(p: Params, x: torch.Tensor, cond: torch.Tensor, te: torch.Tensor,
                   link=conv_link) -> Dict[str, object]:
-    """The six links of ScheduledCNNRefine(fuse='upsample_add'), keeping
-    the raw conv outputs u1..u6 and the GroupNorm statistics g0..g3
-    (aeff, beff, inv, mean) that the backward needs.
+    """The links of ScheduledCNNRefine, keeping the raw conv outputs and
+    the GroupNorm statistics g0..g3 (aeff, beff, inv, mean) that the
+    backward needs. With fa and fb in ``p`` ('upsample_add') six links,
+    u1..u6; without them ('add') four, u1, u2, u5, u6: pr0 then takes
+    GroupNorm-1, the ReLU and the condition add on its input. u5/g2 and
+    u6/g3 are pr0's and pr1's in both.
 
-    p: ``{ne0, ne1, fa, fb, pr0, pr1: (w (3,3,Cin,Cout) bf16, bias f32),
+    p: ``{ne0, ne1, [fa, fb,] pr0, pr1: (w (3,3,Cin,Cout) bf16, bias f32),
     gn0..gn3: (scale f32, bias f32)}``; x (B, H, W, 16) bf16 noisy latent;
     cond (B, H, W, C) bf16 condition; te (B, C) bf16 timestep embedding.
     ``link`` runs each link: ``conv_link`` (the operator) or
@@ -242,14 +248,18 @@ def chain_forward(p: Params, x: torch.Tensor, cond: torch.Tensor, te: torch.Tens
     g0 = affine(ps1, p["gn0"])
     u2, ps2 = link(u1, *p["ne1"], aeff=g0[0], beff=g0[1], relu=True, stats=True)
     g1 = affine(ps2, p["gn1"])
-    u3, _ = link(u2, *p["fa"], aeff=g1[0], beff=g1[1], relu=True, add=cond, te=te)
-    u4, _ = link(u3, *p["fb"])
-    u5, ps5 = link(u4, *p["pr0"], stats=True)
+    it = dict(x=x, cond=cond, te=te, u1=u1, u2=u2, g0=g0, g1=g1)
+    fuse_in = dict(aeff=g1[0], beff=g1[1], relu=True, add=cond, te=te)
+    if "fa" in p:
+        it["u3"], _ = link(u2, *p["fa"], **fuse_in)
+        it["u4"], _ = link(it["u3"], *p["fb"])
+        u5, ps5 = link(it["u4"], *p["pr0"], stats=True)
+    else:
+        u5, ps5 = link(u2, *p["pr0"], stats=True, **fuse_in)
     g2 = affine(ps5, p["gn2"])
     u6, ps6 = link(u5, *p["pr1"], aeff=g2[0], beff=g2[1], relu=True, stats=True)
-    g3 = affine(ps6, p["gn3"])
-    return dict(x=x, cond=cond, te=te, u1=u1, u2=u2, u3=u3, u4=u4, u5=u5, u6=u6,
-                g0=g0, g1=g1, g2=g2, g3=g3)
+    it.update(u5=u5, u6=u6, g2=g2, g3=affine(ps6, p["gn3"]))
+    return it
 
 
 def denoiser_chain(p: Params, x: torch.Tensor, cond: torch.Tensor, te: torch.Tensor
@@ -557,10 +567,11 @@ def _coefs(g, scale) -> torch.Tensor:
 
 def chain_bwd_links(p: Params, it: Dict[str, object], t6: torch.Tensor,
                     coefs6: torch.Tensor, dgn3: Tuple[torch.Tensor, torch.Tensor]):
-    """Six K5 launches, links 6..1, with ``gn_bwd_glue`` between them,
-    given the t-form cotangent t6 of u6 and its coefficients (virtual link
-    7). Returns (grads ``{key: (dW or dscale, dbias)}`` in ``p``'s layout,
-    d(latent) bf16, d(cond) bf16)."""
+    """One K5 launch a link, the last link first (six for the
+    'upsample_add' chain, four for 'add': ``chain_forward``), with
+    ``gn_bwd_glue`` between them, given the t-form cotangent t6 of u6 and
+    its coefficients (virtual link 7). Returns (grads ``{key: (dW or
+    dscale, dbias)}`` in ``p``'s layout, d(latent) bf16, d(cond) bf16)."""
     B, H, W, c16 = it["u6"].shape
     c64 = it["u1"].shape[-1]
     c256 = it["u2"].shape[-1]
@@ -572,11 +583,15 @@ def chain_bwd_links(p: Params, it: Dict[str, object], t6: torch.Tensor,
         t6, p["pr1"][0], it["u5"], u_next=it["u6"], coef_next=coefs6,
         coef_in=_coefs(g2, p["gn2"][0]))
     coefs5, *grads["gn2"] = gn_bwd_glue(ps5, p["gn2"][0], g2[2], g2[3], 4, n64)
-    t4, *grads["pr0"], _, _ = conv_link_bwd(
-        t5, p["pr0"][0], it["u4"], u_next=it["u5"], coef_next=coefs5)
-    t3, *grads["fb"], _, _ = conv_link_bwd(t4, p["fb"][0], it["u3"])
-    t2, *grads["fa"], ps2, dcond = conv_link_bwd(
-        t3, p["fa"][0], it["u2"], coef_in=_coefs(g1, p["gn1"][0]), add=it["cond"], te=it["te"])
+    fuse_in = dict(coef_in=_coefs(g1, p["gn1"][0]), add=it["cond"], te=it["te"])
+    if "fa" in p:
+        t4, *grads["pr0"], _, _ = conv_link_bwd(
+            t5, p["pr0"][0], it["u4"], u_next=it["u5"], coef_next=coefs5)
+        t3, *grads["fb"], _, _ = conv_link_bwd(t4, p["fb"][0], it["u3"])
+        t2, *grads["fa"], ps2, dcond = conv_link_bwd(t3, p["fa"][0], it["u2"], **fuse_in)
+    else:
+        t2, *grads["pr0"], ps2, dcond = conv_link_bwd(
+            t5, p["pr0"][0], it["u2"], u_next=it["u5"], coef_next=coefs5, **fuse_in)
     coefs2, *grads["gn1"] = gn_bwd_glue(ps2, p["gn1"][0], g1[2], g1[3], 4, n256)
     t1, *grads["ne1"], ps1, _ = conv_link_bwd(
         t2, p["ne1"][0], it["u1"], u_next=it["u2"], coef_next=coefs2,
@@ -607,11 +622,22 @@ def _vlink7(it, scale3, ct):
 # ---------------------------------------------------------------------------
 
 
+def chain_keys(n_leaves: int) -> Tuple[str, ...]:
+    """The keys of a chain of ``n_leaves`` leaves, two a key: all of
+    ``CHAIN_KEYS`` for 20 ('upsample_add'), all but the fusion convs fa and
+    fb for 16 ('add'). Any other count is refused."""
+    if n_leaves == 2 * len(CHAIN_KEYS):
+        return CHAIN_KEYS
+    if n_leaves == 2 * len(CHAIN_KEYS) - 4:
+        return tuple(k for k in CHAIN_KEYS if k not in ("fa", "fb"))
+    raise ValueError(f"a fused chain has 20 or 16 leaves, not {n_leaves}")
+
+
 def chain_params_from_flat(flat) -> Params:
-    """f32 leaves in ``CHAIN_KEYS`` order, (weight, bias) each, conv weights
+    """f32 leaves in ``chain_keys`` order, (weight, bias) each, conv weights
     (3, 3, Cin, Cout) -> the chain's parameters with bf16 conv weights."""
     p = {}
-    for i, k in enumerate(CHAIN_KEYS):
+    for i, k in enumerate(chain_keys(len(flat))):
         a, b = flat[2 * i], flat[2 * i + 1]
         p[k] = ((a.to(BF16).contiguous(), b.float().contiguous()) if k in CONV_KEYS
                 else (a.float(), b.float()))
@@ -619,7 +645,7 @@ def chain_params_from_flat(flat) -> Params:
 
 
 def _flat_grads(grads) -> List[torch.Tensor]:
-    return [g for k in CHAIN_KEYS for g in grads[k]]
+    return [g for k in chain_keys(2 * len(grads)) for g in grads[k]]
 
 
 def _dte(dcond: torch.Tensor, te: torch.Tensor) -> torch.Tensor:
@@ -632,9 +658,10 @@ class FusedDenoiser(torch.autograd.Function):
 
     ``apply(lat, cond, te, *flat)``: lat (B, H, W, 16), cond (B, H, W, C)
     bf16; te (B, C) bf16, one timestep embedding per sample; ``flat`` the
-    f32 parameters in ``CHAIN_KEYS`` order. Forward: six K1 launches.
-    Backward: the chain recomputed, virtual link 7 in plain PyTorch, six
-    K5 launches."""
+    f32 parameters in ``chain_keys`` order, whose count picks the chain
+    (six links for 'upsample_add', four for 'add'). Forward: one K1 launch
+    a link. Backward: the chain recomputed, virtual link 7 in plain
+    PyTorch, one K5 launch a link."""
 
     @staticmethod
     def forward(ctx, lat, cond, te, *flat):
@@ -658,9 +685,9 @@ class FusedSamplerStep(torch.autograd.Function):
 
     ``apply(x_f32, x_bf16, cond, te, sched, *flat)``; sched (4,) f32
     [sa, sb, sp, sq]; the rest as ``FusedDenoiser``. Valid for epsilon
-    prediction without clipping, eta 0. Forward: six K1 launches and K2.
-    Backward: the chain recomputed from the saved bf16 latent, K6, the
-    glue and six K5 launches. The gradient reaches both latent copies:
+    prediction without clipping, eta 0. Forward: one K1 launch a link and
+    K2. Backward: the chain recomputed from the saved bf16 latent, K6, the
+    glue and one K5 launch a link. The gradient reaches both latent copies:
     dx_f32 from K6, link 1's d(latent) to the bf16 copy."""
 
     @staticmethod

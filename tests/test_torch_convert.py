@@ -177,17 +177,23 @@ _GUARD = [(fuse, use_fused, bf16, h) for fuse in ("add", "upsample_add", "upsamp
 
 
 @pytest.mark.parametrize("fuse,use_fused,bf16,latent_h", _GUARD)
-def test_fused_guard_routes_as_jax(fuse, use_fused, bf16, latent_h, monkeypatch):
+def test_fused_guard_routes_as_jax_or_add(fuse, use_fused, bf16, latent_h, monkeypatch):
     """The port's fused_active(latent_h) equals the JAX denoiser's (its TPU
-    term set true, the card standing where JAX tests for a TPU), and the
-    call takes the fused chain exactly then: 'add', 'upsample_concat',
-    use_fused off, f32 and latent_h % 8 != 0 each run the module path.
-    latent_h 16 is the X4 latent of a 64-pixel image (12 of a 48-pixel
-    one)."""
+    term set true, the card standing where JAX tests for a TPU), or holds
+    for 'add' under the terms on which JAX's holds for 'upsample_add' (the
+    port's own guard: JAX runs 'add' on XLA), and the call takes the fused
+    chain exactly then: 'upsample_concat', use_fused off, f32 and latent_h
+    % 8 != 0 each run the module path. latent_h 16 is the X4 latent of a
+    64-pixel image (12 of a 48-pixel one)."""
     monkeypatch.setattr(jden.ScheduledCNNRefine, "_on_tpu", staticmethod(lambda: True))
-    jmod = jden.ScheduledCNNRefine(channels_in=64, fuse=fuse, use_fused=use_fused,
-                                   dtype=jnp.bfloat16 if bf16 else None)
-    want = jmod.apply({}, latent_h, method=lambda m, h: m.fused_active(h))
+
+    def jax_guard(f):
+        jmod = jden.ScheduledCNNRefine(channels_in=64, fuse=f, use_fused=use_fused,
+                                       dtype=jnp.bfloat16 if bf16 else None)
+        return jmod.apply({}, latent_h, method=lambda m, h: m.fused_active(h))
+
+    want = jax_guard(fuse) or (fuse == "add" and jax_guard("upsample_add"))
+    assert want == (fuse != "upsample_concat" and use_fused and bf16 and latent_h % 8 == 0)
     pmod = pden.ScheduledCNNRefine(64, 16, fuse=fuse, use_fused=use_fused,
                                    dtype=torch.bfloat16 if bf16 else None)
     assert pmod.fused_active(latent_h) == want

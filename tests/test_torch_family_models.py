@@ -105,11 +105,12 @@ def test_res_vis_pred_inter_matches_jax():
 def test_bf16_modules_match_jax(family):
     """Under the bf16 policy (O1), module by module from the JAX modules'
     own bf16 inputs: the condition map at latent resolution (neck, FPN,
-    upsample) from the JAX pyramid, and one denoiser call (the 'add' module
-    path of the Res head; the fused chain's plain versions for MPViT) on
-    the JAX condition map; res18's pyramid too (mpvit_tiny's is held module
-    by module in test_torch_mpvit.py). Each within 2e-2 of the JAX map's
-    largest value (8-bit rounding at other points)."""
+    upsample) from the JAX pyramid, and one denoiser call on the JAX
+    condition map (the fused chain's plain versions in both heads: four
+    links for the Res head's 'add', against JAX's module path, and six for
+    MPViT's 'upsample_add'); res18's pyramid too (mpvit_tiny's is held
+    module by module in test_torch_mpvit.py). Each within 2e-2 of the JAX
+    map's largest value (8-bit rounding at other points)."""
     batch = make_batch(6)
     model = jax_model(steps=2, bf16=True, family=family)
     variables = _variables(model, batch, seed=7)
@@ -129,7 +130,7 @@ def test_bf16_modules_match_jax(family):
 
     port = port_model(variables, steps=2, opt_level="O1", family=family)
     head = port.depth_head
-    assert head.model.fused_active(lat.shape[1]) == (family == "mpvit_tiny")
+    assert head.model.fused_active(lat.shape[1])  # 'add' and 'upsample_add' alike
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)

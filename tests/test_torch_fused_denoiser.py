@@ -1,6 +1,8 @@
 """The port's denoiser chain and DDIM step (plain versions of kernels K1 and
 K3, the arithmetic the CUDA and Triton kernels reproduce) against the JAX
-package's Pallas kernels in interpret mode and its jnp twin."""
+package's Pallas kernels in interpret mode and its jnp twin; the four-link
+'add' chain (forward, and its backward behind ``FusedDenoiser`` and
+``FusedSamplerStep``) against the module paths of both packages."""
 
 import numpy as np
 import pytest
@@ -12,16 +14,20 @@ import torch  # noqa: E402
 
 from diffusiondepth_tpu.models.heads.denoiser import ScheduledCNNRefine  # noqa: E402
 from diffusiondepth_tpu.ops import fused_denoiser as jfd  # noqa: E402
+from diffusiondepth_tpu_torch.models.heads import denoiser as pden  # noqa: E402
 from diffusiondepth_tpu_torch.ops import fused_denoiser as pfd  # noqa: E402
+from diffusiondepth_tpu_torch.utils import convert_jax_params as cj  # noqa: E402
 
 torch.set_num_threads(1)
 
+BF = torch.bfloat16
 
-def _setup(B=2, H=16, W=21, C=32, seed=0):
+
+def _setup(B=2, H=16, W=21, C=32, seed=0, fuse="upsample_add"):
     """The JAX test's set-up (tests/test_fused_denoiser.py): randomized
     bf16-policy denoiser parameters, a bf16 latent and condition."""
     rng = np.random.RandomState(seed)
-    den = ScheduledCNNRefine(channels_in=C, channels_noise=16, use_fused=False,
+    den = ScheduledCNNRefine(channels_in=C, channels_noise=16, fuse=fuse, use_fused=False,
                              dtype=jnp.bfloat16)
     lat = jnp.asarray(rng.randn(B, H, W, 16), jnp.bfloat16)
     cond = jnp.asarray(rng.randn(B, H, W, C), jnp.bfloat16)
@@ -183,3 +189,182 @@ def test_ddim_step_matches_flat_ddim_update(a_t, a_prev):
                         torch.from_numpy(beff), torch.from_numpy(x), torch.from_numpy(sched))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6,
                                atol=1e-6 * np.abs(np.asarray(ref)).max())
+
+
+# ---------------------------------------------------------------------------
+# the four-link chain of the 'add' denoiser (the Res heads)
+# ---------------------------------------------------------------------------
+
+
+def _dist(a, b):
+    """RMS distance over the reference's RMS."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return float(np.sqrt(np.mean((a - b) ** 2)) / (np.sqrt(np.mean(b ** 2)) + 1e-8))
+
+
+def _port_add(params, C, dtype=BF, use_fused=True):
+    """The port's 'add' ScheduledCNNRefine holding the JAX module's
+    parameters: fused (the chain's plain versions on the CPU) or the
+    module path, bf16 or f32."""
+    m = pden.ScheduledCNNRefine(C, 16, fuse="add", use_fused=use_fused, dtype=dtype)
+    sd = {"time_embedding.weight": params["time_embedding"]["embedding"]}
+    cj._conv_gn_block(sd, "noise_embedding", params["noise_embedding"])
+    cj._conv_gn_block(sd, "pred", params["pred"])
+    m.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()})
+    return m
+
+
+@pytest.mark.parametrize("fuse,links", [("add", 4), ("upsample_add", 6)])
+def test_chain_links_follow_the_module(fuse, links):
+    """The module's own structure picks the chain: 'upsample_add' gives
+    ``chain_flat`` the fusion convs and six links, 'add' four: ne0 (stats),
+    ne1 (GroupNorm-0, ReLU, stats), pr0 (GroupNorm-1, ReLU, the condition
+    and te added, stats), pr1 (GroupNorm-2, ReLU, stats). The
+    'upsample_concat' module has no chain."""
+    m = pden.ScheduledCNNRefine(32, 16, fuse=fuse, dtype=BF)
+    flat = m.chain_flat()
+    assert len(flat) == 2 * (links + 4)
+    assert set(pfd.chain_params_from_flat(flat)) == set(pfd.chain_keys(len(flat)))
+    seen = []
+
+    def link(x, w, bias, aeff=None, beff=None, relu=False, add=None, te=None, stats=False):
+        seen.append((w.shape[2], w.shape[3], aeff is not None, relu, add is not None,
+                     te is not None, stats))
+        return pfd.conv_link_plain(x, w, bias, aeff, beff, relu, add, te, stats)
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 5, 16, generator=g).to(BF)
+    cond = torch.randn(2, 8, 5, 32, generator=g).to(BF)
+    te = torch.randn(2, 32, generator=g).to(BF)
+    with torch.no_grad():
+        it = pfd.chain_forward(m.chain_params(), x, cond, te, link)
+    assert len(seen) == links and it["u6"].shape == (2, 8, 5, 16)
+    if fuse == "add":
+        assert seen == [(16, 64, False, False, False, False, True),
+                        (64, 32, True, True, False, False, True),
+                        (32, 64, True, True, True, True, True),
+                        (64, 16, True, True, False, False, True)]
+        assert "u3" not in it and "u4" not in it
+    with pytest.raises(ValueError, match="upsample_concat"):
+        pden.ScheduledCNNRefine(32, 16, fuse="upsample_concat", dtype=BF).chain_flat()
+
+
+@pytest.mark.parametrize("n_leaves", [0, 14, 18, 22])
+def test_chain_keys_refuse_other_counts(n_leaves):
+    """A flat list with a leaf missing or added is refused, not read as
+    the other chain: only 20 ('upsample_add') and 16 ('add') leaves name
+    a chain."""
+    assert len(pfd.chain_keys(20)) == 10 and "fa" in pfd.chain_keys(20)
+    assert len(pfd.chain_keys(16)) == 8 and "fa" not in pfd.chain_keys(16)
+    with pytest.raises(ValueError, match="20 or 16 leaves"):
+        pfd.chain_keys(n_leaves)
+    with pytest.raises(ValueError, match="20 or 16 leaves"):
+        pfd.chain_params_from_flat([torch.zeros(1)] * n_leaves)
+
+
+_ADD_CASES = [(2, 16, 21, 32, 0), (1, 8, 13, 32, 3), (2, 16, 21, 64, 5)]
+
+
+@pytest.mark.parametrize("B,H,W,C,seed", _ADD_CASES)
+def test_add_chain_matches_module_paths(B, H, W, C, seed):
+    """The 'add' denoiser through the four-link chain (plain K1, then
+    GroupNorm-3 + ReLU as K3 finishes it), f32 parameters and bf16
+    activations, against the JAX 'add' module in f32 (the reference): its
+    RMS distance is at most k = 1.5 times that of the bf16 module path, the
+    port's and the JAX package's (measured: chain 0.0036-0.0045, module
+    paths 0.0043-0.0057, a ratio of 0.79-0.84 on these cases and up to 1.0
+    on others). Against the JAX bf16 module path directly: within 2e-2 of
+    its largest value (measured 0.0075-0.0113)."""
+    den, params, lat, cond, _ = _setup(B, H, W, C, seed, fuse="add")
+    jb = np.asarray(den.apply({"params": params}, lat, 100, cond), np.float32)
+    jf = np.asarray(ScheduledCNNRefine(channels_in=C, channels_noise=16, fuse="add",
+                                       use_fused=False).apply(
+        {"params": params}, lat.astype(jnp.float32), 100, cond.astype(jnp.float32)), np.float32)
+    fused = _port_add(params, C)
+    module = _port_add(params, C, use_fused=False)
+    assert fused.fused_active(H) and not module.fused_active(H)
+    with torch.no_grad():
+        pf = fused(_t(lat), 100, _t(cond, BF)).float().numpy()
+        pm = module(_t(lat), 100, _t(cond, BF)).float().numpy()
+    d = _dist(pf, jf)
+    assert d <= 1.5 * _dist(pm, jf), (d, _dist(pm, jf))
+    assert d <= 1.5 * _dist(jb, jf), (d, _dist(jb, jf))
+    assert np.abs(pf - jb).max() <= 2e-2 * np.abs(jb).max()
+
+
+def _gate(fused, twin, oracle):
+    """The JAX accuracy gate (tests/test_fused_denoiser.py) on each pair of
+    gradients: the fused chain's RMS distance to the f32 oracle within 2x
+    the bf16 module path's + 0.05."""
+    for k in oracle:
+        p, tw, o = fused[k], twin[k], oracle[k]
+        assert np.isfinite(p).all(), k
+        assert _dist(p, o) < 2 * _dist(tw, o) + 0.05, (k, _dist(p, o), _dist(tw, o))
+
+
+_KINDS = {"fused": dict(), "twin": dict(use_fused=False),
+          "oracle": dict(dtype=None, use_fused=False)}
+
+
+@pytest.mark.parametrize("B,H,W,seed", [(2, 8, 13, 2), (2, 16, 21, 4)])
+def test_add_denoiser_grads_pass_accuracy_gate(B, H, W, seed):
+    """FusedDenoiser for 'add' (the ddim_loss call, one timestep per
+    sample; backward: virtual link 7, four plain K5 links, pr0's with the
+    condition's cotangent) against autograd through the module path: the
+    gradients of the latent, the condition and every parameter, the
+    time embedding's included, pass the accuracy gate against the f32
+    module path's autograd (measured: chain 0.007-0.139, bf16 module path
+    0.015-0.154, the largest ratio 1.34)."""
+    _, params, lat, cond, _ = _setup(B, H, W, 32, seed, fuse="add")
+    ct = torch.from_numpy(np.random.RandomState(9).randn(*lat.shape) * 0.1).to(BF).float()
+    out = {}
+    for kind, kw in _KINDS.items():
+        m = _port_add(params, 32, **kw)
+        x = _t(lat).requires_grad_()
+        c = _t(cond, None if kind == "oracle" else BF).requires_grad_()
+        eps = m(x.to(BF) if kind == "fused" else x, torch.tensor([100, 7][:B]), c)
+        eps.float().backward(ct)
+        out[kind] = {"latent": x.grad.float().numpy(), "cond": c.grad.float().numpy(),
+                     **{n: p.grad.float().numpy() for n, p in m.named_parameters()}}
+    _gate(out["fused"], out["twin"], out["oracle"])
+
+
+def test_add_sampler_step_grads_pass_accuracy_gate():
+    """FusedSamplerStep for 'add' (four plain K1 links + plain K2 forward;
+    plain K6, glue and four plain K5 links backward) against autograd
+    through the module path followed by the DDIM update in f32: the new
+    f32 latent within 2e-2 of the bf16 module step's largest value, and
+    the gradients of the latent (summed over both copies), the condition
+    and every parameter pass the accuracy gate against the f32 module
+    path's."""
+    _, params, lat, cond, _ = _setup(2, 8, 13, 32, 4, fuse="add")
+    rng = np.random.RandomState(5)
+    x32 = rng.randn(*lat.shape).astype(np.float32)
+    a_t, a_prev = 0.63, 0.89
+    sched = torch.tensor([a_t ** 0.5, (1 - a_t) ** 0.5, a_prev ** 0.5, (1 - a_prev) ** 0.5])
+    sa, sb, sp, sq = (float(v) for v in sched)
+    dxp = torch.from_numpy(rng.randn(*lat.shape) * 0.1).float()
+    dxpb = torch.from_numpy(rng.randn(*lat.shape) * 0.1).to(BF)
+    out, new = {}, {}
+    for kind, kw in _KINDS.items():
+        m = _port_add(params, 32, **kw)
+        c = _t(cond, None if kind == "oracle" else BF).requires_grad_()
+        xf = torch.from_numpy(x32).requires_grad_()
+        if kind == "fused":
+            xb = torch.from_numpy(x32).to(BF).requires_grad_()
+            te = m.time_embed(torch.tensor(100)).expand(2, 32).contiguous()
+            xp, xpb = pfd.FusedSamplerStep.apply(xf, xb, c, te, sched, *m.chain_flat())
+            torch.autograd.backward((xp, xpb), (dxp, dxpb))
+            dx = xf.grad + xb.grad.float()
+        else:
+            eps = m(xf, torch.tensor(100), c).float()
+            x0 = (xf - sb * eps) / sa
+            xp = sp * x0 + sq * (xf - sa * x0) / sb
+            xp.backward(dxp + dxpb.float())
+            dx = xf.grad
+        new[kind] = xp.detach().numpy()
+        out[kind] = {"latent": dx.numpy(), "cond": c.grad.float().numpy(),
+                     **{n: p.grad.float().numpy() for n, p in m.named_parameters()}}
+    assert np.abs(new["fused"] - new["twin"]).max() <= 2e-2 * np.abs(new["twin"]).max()
+    _gate(out["fused"], out["twin"], out["oracle"])

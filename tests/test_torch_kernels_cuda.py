@@ -27,7 +27,8 @@ def dev():
 
 
 # the six links of the chain (ne0, ne1, fa, fb, pr0, pr1), then ragged
-# shapes: W below one 128-pixel tile, one past a tile, H = 1, B = 3
+# shapes: W below one 128-pixel tile, one past a tile, H = 1, B = 3 (the
+# first, 256 -> 64 with GroupNorm, add and stats, is the four-link chain's pr0)
 @pytest.mark.parametrize("cin,cout,gn,add,stats,B,H,w", [
     (16, 64, False, False, True, 2, 6, 130), (64, 256, True, False, True, 2, 6, 37),
     (256, 256, True, True, False, 2, 6, 129), (256, 256, False, False, False, 2, 6, 20),
@@ -160,10 +161,12 @@ def test_sched_bwd_matches_plain(dev, with_b):
     (256, 256, False, True, True, 2, 6, 129), (256, 256, False, False, False, 2, 6, 20),
     (256, 64, True, False, False, 2, 6, 45), (64, 16, True, True, False, 2, 6, 5),
     (256, 256, False, True, True, 3, 1, 5), (16, 64, True, False, False, 3, 2, 129),
-    (64, 16, True, True, False, 3, 1, 65), (64, 256, True, True, False, 3, 3, 128)])
+    (64, 16, True, True, False, 3, 1, 65), (64, 256, True, True, False, 3, 3, 128),
+    (256, 64, True, True, True, 2, 6, 129), (256, 64, True, True, True, 3, 1, 5)])
 def test_conv_link_bwd_matches_plain(dev, cin, cout, gn_next, gn_in, add, B, H, w):
     """K5 at the six kinds of link, then ragged shapes (W below a tile,
-    one past a tile, H = 1, B = 3): t and d(add) within one bf16 step of
+    one past a tile, H = 1, B = 3), then the 'add' chain's pr0 (GN_NEXT |
+    GN_IN | ADD | TE): t and d(add) within one bf16 step of
     the largest value (1e-2), dW, dbias and the partials to f32 summation
     order (1e-3 of the largest value); and two launches give the same
     bits."""
@@ -407,11 +410,11 @@ _FAMILIES = {
 @pytest.mark.parametrize("family", sorted(_FAMILIES))
 def test_family_launch_counts(dev, family):
     """Under the bf16 policy on the card, 2 DDIM steps on a 64x96 batch of
-    2: the Res head's 'add' denoiser launches no kernel, in eval or in one
-    training step; the MPViT head takes the fused chain, 6 K1 + 1 K3 per
-    eval step, and in training per sampler step 6 K1 + K2 forward and 6 K1
-    + K6 + 6 K5 backward, plus the ddim_loss call's 6 K1 and its backward's
-    6 K1 + 6 K5. No attention or LayerNorm kernel runs on either."""
+    2: both heads take the fused chain, n links (the Res head's 'add' 4,
+    the MPViT head's 'upsample_add' 6): n K1 + 1 K3 per eval step, and in
+    training per sampler step n K1 + K2 forward and n K1 + K6 + n K5
+    backward, plus the ddim_loss call's n K1 and its backward's n K1 + n
+    K5. No attention or LayerNorm kernel runs on either."""
     steps = 2
     cfg = port.Config(model_name="Diffusion_DCbase_", inference_steps=steps, opt_level="O1",
                       batch_size=2, **_FAMILIES[family]).finalize()
@@ -419,13 +422,12 @@ def test_family_launch_counts(dev, family):
     g = torch.Generator(device=dev).manual_seed(0)
     batch = {"rgb": torch.randn(2, 64, 96, 3, generator=g, device=dev),
              "gt": torch.rand(2, 64, 96, 1, generator=g, device=dev) * 8 + 1}
-    chain = family == "mpvit_tiny"
+    links = 6 if family == "mpvit_tiny" else 4
     port.reset_launch_counts()
     pred, met, _ = port.make_eval_step(model)(batch, generator=g)
     torch.cuda.synchronize()
     want = {k: 0 for k in LAUNCHES}
-    if chain:
-        want.update(conv_link=6 * steps, ddim_step=steps)
+    want.update(conv_link=links * steps, ddim_step=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(pred).all()) and bool(torch.isfinite(met).all())
 
@@ -435,11 +437,19 @@ def test_family_launch_counts(dev, family):
     loss, _, _ = step(batch, generator=g)
     torch.cuda.synchronize()
     want = {k: 0 for k in LAUNCHES}
-    if chain:
-        want.update(conv_link=2 * 6 * (steps + 1), sched_step=steps,
-                    conv_link_bwd=6 * (steps + 1), sched_bwd=steps)
+    want.update(conv_link=2 * links * (steps + 1), sched_step=steps,
+                conv_link_bwd=links * (steps + 1), sched_bwd=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(loss))
+
+
+def test_add_chain_pr0_at_res50_shape(dev):
+    """The 'add' chain's pr0 link at the res50 cell's latent (8 x 176 x 608,
+    256 -> 64 channels): K1 with GN_IN | RELU | ADD | TE | STATS and K5
+    with GN_NEXT | GN_IN | ADD | TE, each against its plain version with
+    the tolerances and bitwise repeats of the tests above."""
+    test_conv_link_matches_plain(dev, 256, 64, True, True, True, 8, 176, 608)
+    test_conv_link_bwd_matches_plain(dev, 256, 64, True, True, True, 8, 176, 608)
 
 
 # the six links of the chain for K1 (cin, cout, gn, add, stats) and K5
