@@ -22,6 +22,14 @@ Parameter names are the reference's (``stem.{0,1}``,
 ``patch_embed_stages.{s}.patch_embeds.{p}.patch_conv.{dwconv,pwconv,bn}``,
 ``mhca_stages.{s}.{InvRes,mhca_blks.{p},aggregate}``), the names
 ``convert_mpvit`` reads.
+
+Spans (``trace.span``, recorded only inside a ``torch.profiler`` session):
+``backbone.stem`` over the full-resolution stem and ``backbone.stage{s}``
+over each stage, which holds ``backbone.stage{s}.embed`` (the chained patch
+embeds), ``.invres``, ``.mhca`` (every path encoder of the stage) and
+``.aggregate`` (the concat and the 1x1 ConvBN + Hardswish). The backbone
+launches no hand-written kernel and copies nothing from the host per call,
+so it adds no counter.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch.nn.functional as F
 
 from ...parallel.mesh import draw_rows
 from ...registry import BACKBONES
+from ...trace import span
 from ..common import BatchNorm2d, conv2d_nhwc, drop_path, layer_norm, linear
 
 
@@ -290,22 +299,28 @@ class MPViT(nn.Module):
         """Stage ``s`` on its input (the stem's output or stage s-1's):
         the chained patch embeds, InvRes and the path encoders, aggregated."""
         embed, stage = self.patch_embed_stages[s], self.mhca_stages[s]
-        paths = []
-        for pe in embed.patch_embeds:
-            x = pe(x)
-            paths.append(x)
-        feats = [stage.InvRes(paths[0])]
-        feats += [self._encoder(enc, p, generator) for enc, p in zip(stage.mhca_blks, paths)]
-        return stage.aggregate(torch.cat(feats, dim=-1))
+        with span(f"backbone.stage{s}.embed"):
+            paths = []
+            for pe in embed.patch_embeds:
+                x = pe(x)
+                paths.append(x)
+        with span(f"backbone.stage{s}.invres"):
+            feats = [stage.InvRes(paths[0])]
+        with span(f"backbone.stage{s}.mhca"):
+            feats += [self._encoder(enc, p, generator) for enc, p in zip(stage.mhca_blks, paths)]
+        with span(f"backbone.stage{s}.aggregate"):
+            return stage.aggregate(torch.cat(feats, dim=-1))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """(B, H, W, 3) -> the four stage outputs at 1/2 .. 1/16."""
-        for conv in self.stem:
-            x = conv(x)
+        with span("backbone.stem"):
+            for conv in self.stem:
+                x = conv(x)
         outs = []
         for s in range(len(self.mhca_stages)):
-            x = self.stage(s, x, generator)
+            with span(f"backbone.stage{s}"):
+                x = self.stage(s, x, generator)
             outs.append(x)
         return outs
 

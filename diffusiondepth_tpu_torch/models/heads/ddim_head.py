@@ -275,7 +275,11 @@ class DDIMDepthEstimate_Swin_ADDHAHIVis(DDIMDepthEstimate_Swin_ADDHAHI):
 
 @HEADS.register()
 class DDIMDepthEstimate_MPVIT_ADDHAHI(DDIMDepthEstimateHead):
-    """MPViT-small pyramid + HAHI neck (conv path); upsample-add fusion."""
+    """MPViT-small pyramid + HAHI neck (conv path); upsample-add fusion. The
+    pyramid starts at 1/2 resolution, so the neck's first fusion conv and
+    its FPN lateral run at the default latent's size. Its backbone records
+    ``backbone.stem`` and ``backbone.stage{s}`` with their ``.embed``,
+    ``.invres``, ``.mhca`` and ``.aggregate`` children (``mpvit.py``)."""
 
     in_channels = (128, 216, 288, 288)
     fuse = "upsample_add"

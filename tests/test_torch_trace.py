@@ -331,6 +331,8 @@ CELLS = {  # the benchmark's configurations (h100bench/configs), batch 8 at 352x
                   head_specify="DDIMDepthEstimate_Swin_ADDHAHI"),
     "res50": dict(backbone_module="mmbev_resnet", backbone_name="mmbev_res50",
                   head_specify="DDIMDepthEstimate_Res"),
+    "mpvit": dict(backbone_module="mpvit", backbone_name="mpvit_small",
+                  head_specify="DDIMDepthEstimate_MPVIT_ADDHAHI"),
 }
 
 
