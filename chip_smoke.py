@@ -1297,7 +1297,8 @@ def _trace_and_dispatch(torch, module, batch, lat_shape, gen0, steps, n_blk, roo
     print(summary_text, flush=True)
     total_us, dur, cnt = analyze_trace.breakdown(analyze_trace.load_events(trace), "kernel")
     top = [ln.split("  ", 2)[-1] for ln in summary_text.splitlines() if " n=" in ln]
-    want = {"conv_link": 6 * steps, "window_attention": n_blk, "ddim_step": steps}
+    want = {"conv_link": 6 * steps, "conv_link_xf": steps, "window_attention": n_blk,
+            "ddim_step": steps}
     counts = {k: sum(c for name_, c in cnt.items() if k in name_) for k in want}
     emit({"phase": "export-serve", "step": "trace-counts", "expected": want,
           "launches": {k: launched[k] for k in want}, "trace": counts,
@@ -1521,7 +1522,7 @@ def export_serve_phase(port, torch, device, flags=None, shape=(B, H_IMG, W_IMG),
                       f"first divergence (index, artifact, eager): {part}")
             expect = {k: 0 for k in port.LAUNCHES}
             if cuda:
-                expect.update({"conv_link": 6 * steps, "ddim_step": steps,
+                expect.update({"conv_link": 6 * steps, "conv_link_xf": steps, "ddim_step": steps,
                                ("window_attention_split" if pallas else "window_attention"): n_blk})
             per_request[name] = {k: v // 3 for k, v in launches.items()}
             check(launches == {k: 3 * v for k, v in expect.items()},
@@ -2476,18 +2477,19 @@ def main() -> int:
              for k, v in logs.items()}
     emit({"phase": "build", "seconds": secs, "sources": list(native.CUDA_SOURCES),
           "ptxas": ptxas})
-    # -Xptxas -v of the tensor-core attention kernels and of K10 by kernel,
-    # and whether each library's SASS holds tensor-core (HMMA/HGMMA),
-    # ldmatrix and cp.async (LDGSTS) instructions
+    # -Xptxas -v of every kernel, and whether each library's SASS holds
+    # tensor-core (HMMA/HGMMA), ldmatrix and cp.async (LDGSTS)
+    # instructions; K1's transform-warp kernels must not spill
     for src, log in logs.items():
-        if not (src.startswith("window_attention") or src == "layernorm_bwd"):
-            continue
         entry = None
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
                 entry = ln.split("'")[1]
             elif entry and ("registers" in ln or "spill" in ln):
                 print(f"ptxas {src} {entry}: {ln.split(':', 1)[-1].strip()}", flush=True)
+                if "conv_link_xf_kernel" in entry and "spill" in ln:
+                    check("0 bytes spill stores, 0 bytes spill loads" in ln,
+                          f"ptxas {src} {entry} spills: {ln.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if os.path.exists(cuobjdump):
         sass = {}
@@ -2514,7 +2516,7 @@ def main() -> int:
 
     def k1_chain(bsz, lh, lw, what, links=LINKS):
         k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
-                  flops=0.0, bytes=0.0)
+                  flops=0.0, bytes=0.0, links={})
         for lname, cin, cout, gn, add, stats in links:
             x = randn(bsz, lh, lw, cin, dtype=bf)
             w = randn(3, 3, cin, cout, dtype=bf, scale=(9 * cin) ** -0.5)
@@ -2570,6 +2572,7 @@ def main() -> int:
                            ("library_ms", lib_ms), ("flops", flops), ("bytes", nbytes)):
                 k1[k] += val
             k1["max_abs_err"] = max(k1["max_abs_err"], err)
+            k1["links"][lname] = ms
             del x, w, y_k, y_2, y_p, v
         k1["bound_by"] = bound(k1["bytes"], k1["flops"], BF16_FLOPS)[1]
         emit({"phase": "kernel", "kernel": "conv_link", "shapes": what,
@@ -2588,8 +2591,11 @@ def main() -> int:
     k1_add_train = k1_chain(B_T // ACCUM, H_T // 2, W_T // 2, "train-add", ADD_LINKS)
     summary["conv_link"]["max_abs_err"] = max(summary["conv_link"]["max_abs_err"],
                                               k1_add["max_abs_err"], k1_add_train["max_abs_err"])
+    # each link's ms (fa against fb: the transform-warp path's cost)
+    summary["conv_link"]["links"]["add_pr0"] = k1_add["links"]["pr0"]
     summary["conv_link"]["add"] = {
         "ms": k1_add["ms"], "bound_ms": k1_add["bound_ms"], "library_ms": k1_add["library_ms"],
+        "links": k1_add["links"],
         "train_ms": k1_add_train["ms"], "train_bound_ms": k1_add_train["bound_ms"],
         "train_library_ms": k1_add_train["library_ms"]}
 
@@ -3343,7 +3349,8 @@ def main() -> int:
             rows.append(met[0].tolist())
         launches = dict(port.LAUNCHES)
         expect = {k: 0 for k in port.LAUNCHES}
-        expect.update({"conv_link": 6 * STEPS * n_req, "ddim_step": STEPS * n_req,
+        expect.update({"conv_link": 6 * STEPS * n_req, "conv_link_xf": STEPS * n_req,
+                       "ddim_step": STEPS * n_req,
                        "window_attention": sum(SWIN_L["depths"]) * n_req})
         check(launches == expect, f"launch counts {launches} != {expect}")
         path_launches["serve"] = launches
@@ -3401,7 +3408,8 @@ def main() -> int:
                   and bool(torch.isfinite(met).all()), "serve-pallas: pred or metrics not finite")
         p_launches = dict(port.LAUNCHES)
         p_expect = {k: 0 for k in port.LAUNCHES}
-        p_expect.update({"conv_link": 6 * STEPS * n_req, "ddim_step": STEPS * n_req,
+        p_expect.update({"conv_link": 6 * STEPS * n_req, "conv_link_xf": STEPS * n_req,
+                         "ddim_step": STEPS * n_req,
                          "window_attention_split": sum(SWIN_L["depths"]) * n_req})
         check(p_launches == p_expect, f"serve-pallas launch counts {p_launches} != {p_expect}")
         path_launches["serve-pallas"] = p_launches
@@ -3436,7 +3444,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         l_ms, l_rows = [], []
         l_expect = {k: 0 for k in port.LAUNCHES}
-        l_expect.update({"conv_link": 6 * lb_steps, "ddim_step": lb_steps,
+        l_expect.update({"conv_link": 6 * lb_steps, "conv_link_xf": lb_steps, "ddim_step": lb_steps,
                          "window_attention": sum(SWIN_L["depths"])})
         for batch in batches[:2]:
             port.reset_launch_counts()
@@ -3493,7 +3501,8 @@ def main() -> int:
         # 24 Swin blocks (K4 forward and again in the rematerialised
         # backward, K7 backward)
         n_blk = sum(SWIN_L["depths"])
-        t_expect = {"conv_link": ACCUM * 2 * 6 * (STEPS + 1), "ddim_step": 0,
+        t_expect = {"conv_link": ACCUM * 2 * 6 * (STEPS + 1),
+                    "conv_link_xf": ACCUM * 2 * (STEPS + 1), "ddim_step": 0,
                     "window_attention": ACCUM * 2 * n_blk, "sched_step": ACCUM * STEPS,
                     "conv_link_bwd": ACCUM * 6 * (STEPS + 1), "sched_bwd": ACCUM * STEPS,
                     "window_attention_bwd": ACCUM * n_blk}
@@ -3709,7 +3718,8 @@ def main() -> int:
         sync()
         torch.cuda.reset_peak_memory_stats()
         a_expect = {k: 0 for k in port.LAUNCHES}
-        a_expect.update({"conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk})
+        a_expect.update({"conv_link": 6 * STEPS, "conv_link_xf": STEPS, "ddim_step": STEPS,
+                         "window_attention": n_blk})
         a_ms, a_rows = [], []
         for batch in abatches:
             port.reset_launch_counts()
@@ -4066,10 +4076,10 @@ def main() -> int:
 
         path_launches["serve-res50"] = serve_cell(
             "serve-res50", "mmbev_resnet", "mmbev_res50", "DDIMDepthEstimate_Res",
-            {"conv_link": 4 * STEPS, "ddim_step": STEPS}, "sampler")
+            {"conv_link": 4 * STEPS, "conv_link_xf": STEPS, "ddim_step": STEPS}, "sampler")
         path_launches["serve-mpvit_small"] = serve_cell(
             "serve-mpvit_small", "mpvit", "mpvit_small", "DDIMDepthEstimate_MPVIT_ADDHAHI",
-            {"conv_link": 6 * STEPS, "ddim_step": STEPS}, "backbone")
+            {"conv_link": 6 * STEPS, "conv_link_xf": STEPS, "ddim_step": STEPS}, "backbone")
 
         # ---- 10. train mpvit_small with the flagship recipe
         mcfg = dataclasses.replace(tcfg, backbone_module="mpvit", backbone_name="mpvit_small",
@@ -4147,7 +4157,7 @@ def main() -> int:
         # through main on a KITTI-DC tree written with the port's PNG writer
         # per eval batch at 20 steps: 6 K1 + K3 per step, one K4 per Swin block
         path_launches["cli"] = cli_phase(port, torch, dev, t_expect, {
-            "conv_link": 6 * STEPS, "ddim_step": STEPS,
+            "conv_link": 6 * STEPS, "conv_link_xf": STEPS, "ddim_step": STEPS,
             "window_attention": sum(SWIN_L["depths"])})
 
         # ---- 12-15. NLSPN, the CLI's default model
@@ -4183,7 +4193,8 @@ def main() -> int:
         # at (8, 88, 304)) and 19. the concat head (its denoiser on cuDNN)
         path_launches["serve-x4"] = serve_cell(
             "serve-x4", "swin", "swin_large_naive_l4w722422k", "DDIMDepthEstimate_Swin_ADDHAHI",
-            {"conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk}, "sampler",
+            {"conv_link": 6 * STEPS, "conv_link_xf": STEPS, "ddim_step": STEPS,
+             "window_attention": n_blk}, "sampler",
             model_name="Diffusion_DCx4base_")
         path_launches["serve-bins"] = serve_cell(
             "serve-bins", "swin", "swin_large_naive_l4w722422k", "DDIMDepthEstimate_Swin",
@@ -4256,15 +4267,17 @@ def main() -> int:
         # ---- 22. data parallelism: two ranks of the flagship's training step
         # and of a served request on the one card, and main at data:1
         path_launches["ddp"] = ddp_phase(port, torch, dev, t_expect, {
-            "conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk,
-            **{k: 0 for k in port.LAUNCHES if k not in ("conv_link", "ddim_step",
+            "conv_link": 6 * STEPS, "conv_link_xf": STEPS, "ddim_step": STEPS,
+            "window_attention": n_blk,
+            **{k: 0 for k in port.LAUNCHES if k not in ("conv_link", "conv_link_xf", "ddim_step",
                                                       "window_attention")}})
 
         # ---- 23. tensor parallelism: the flagship's training step and a
         # served request with the state cut over 'model', on the one card
         path_launches["tp"] = tp_phase(port, torch, dev, t_expect, {
-            "conv_link": 6 * STEPS, "ddim_step": STEPS, "window_attention": n_blk,
-            **{k: 0 for k in port.LAUNCHES if k not in ("conv_link", "ddim_step",
+            "conv_link": 6 * STEPS, "conv_link_xf": STEPS, "ddim_step": STEPS,
+            "window_attention": n_blk,
+            **{k: 0 for k in port.LAUNCHES if k not in ("conv_link", "conv_link_xf", "ddim_step",
                                                       "window_attention")}})
 
     # (route, source, TPU kernel, the path whose run counts its launches:
@@ -4297,7 +4310,8 @@ def main() -> int:
          "plain_ms": summary[k]["plain_ms"], "bound_ms": summary[k]["bound_ms"],
          "bound_by": summary[k]["bound_by"], "library_ms": summary[k]["library_ms"],
          **{x: summary[k][x] for x in ("event_ms", "train_ms", "train_bound_ms",
-                                       "train_library_ms", "x4", "add") if x in summary[k]}}
+                                       "train_library_ms", "x4", "add", "links")
+            if x in summary[k]}}
         for k, src in sources.items()]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -19,7 +19,9 @@
 // two consumer warpgroups (rows 0-63 and 64-127) run the nine taps of a
 // halo stage, the tap (dr, dc) reading halo rows dr * (BM + 2) + m + dc.
 // The caller's prologue hook transforms each halo stage in place once
-// (then a fence.proxy.async and a named barrier), before its nine taps. Those rows start at
+// (then a fence.proxy.async and a named barrier), before its nine taps;
+// K1's transformed links instead wait for warps of their own to transform
+// it (csrc/conv_link.cu, XfPipe) and run only `taps`. Those rows start at
 // any row of the 8-row swizzle atom, so A is read with ldmatrix through the
 // swizzle XOR into registers and wgmma takes A from registers; B, aligned
 // to the atom, is read by wgmma through a shared-memory descriptor.
@@ -106,6 +108,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// whether the phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -134,6 +149,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier 1 among the 256 consumer threads (barrier 0 is __syncthreads)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// named barrier ID among N threads (a multiple of 32)
+template <int ID, int N>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
 }
 
 template <int N>
@@ -458,12 +479,6 @@ struct Conv3x3 {
   // barrier publish it.
   template <class Transform>
   __device__ void consume(float (&acc)[BN / 2], int n_chunks, Transform& transform) const {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    // the halo row (output pixel) this lane addresses for ldmatrix, and
-    // which 8 channels of each k16 step
-    const int mrow = (warp >> 2) * 64 + (warp & 3) * 16 + (lane & 15);
-    const int khalf = lane >> 4;
     for (int c = 0; c < n_chunks; ++c) {
       const int a = c & 1;
       mbar_wait(a_full(a), (c >> 1) & 1);
@@ -472,27 +487,40 @@ struct Conv3x3 {
         fence_proxy_async();
         consumer_sync();
       }
-      const uint32_t a_addr = smem_u32(a_stage(a));
-      for (int tap = 0; tap < 9; ++tap) {
-        const int i = c * 9 + tap;
-        const int s = i % NB;
-        mbar_wait(b_full(s), (i / NB) & 1);
-        const uint32_t row = (tap / 3) * HALO + mrow + tap % 3;
-        uint32_t af[KC / 16][4];
-#pragma unroll
-        for (int ks = 0; ks < KC / 16; ++ks)
-          ldmatrix_x4(af[ks], a_addr + swz<RB>(row * RB + (2 * ks + khalf) * 16));
-        const uint32_t b_addr = smem_u32(b_stage(s));
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < KC / 16; ++ks)
-          wgmma_m64k16<BN, 0>(acc, af[ks], make_desc<RB>(b_addr + ks * 32, 16, 8 * RB));
-        wgmma_commit();
-        wgmma_wait_all();
-        if (lane == 0) mbar_arrive(b_empty(s));
-      }
-      if (lane == 0) mbar_arrive(a_empty(a));
+      taps(acc, c);
     }
+  }
+
+  // The consumers' nine taps of chunk c on its halo stage, in (tap, k16)
+  // order, each waited out; then the stage is released.
+  __device__ __forceinline__ void taps(float (&acc)[BN / 2], int c) const {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    // the halo row (output pixel) this lane addresses for ldmatrix, and
+    // which 8 channels of each k16 step
+    const int mrow = (warp >> 2) * 64 + (warp & 3) * 16 + (lane & 15);
+    const int khalf = lane >> 4;
+    const int a = c & 1;
+    const uint32_t a_addr = smem_u32(a_stage(a));
+    for (int tap = 0; tap < 9; ++tap) {
+      const int i = c * 9 + tap;
+      const int s = i % NB;
+      mbar_wait(b_full(s), (i / NB) & 1);
+      const uint32_t row = (tap / 3) * HALO + mrow + tap % 3;
+      uint32_t af[KC / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks)
+        ldmatrix_x4(af[ks], a_addr + swz<RB>(row * RB + (2 * ks + khalf) * 16));
+      const uint32_t b_addr = smem_u32(b_stage(s));
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks)
+        wgmma_m64k16<BN, 0>(acc, af[ks], make_desc<RB>(b_addr + ks * 32, 16, 8 * RB));
+      wgmma_commit();
+      wgmma_wait_all();
+      if (lane == 0) mbar_arrive(b_empty(s));
+    }
+    if (lane == 0) mbar_arrive(a_empty(a));
   }
 };
 

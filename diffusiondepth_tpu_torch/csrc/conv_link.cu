@@ -26,19 +26,51 @@
 // nine taps, and three (N = 256) or six weight stages. With N = 256 the
 // halo of a row segment is staged and transformed once for all output
 // channels. One producer warpgroup (one thread issues TMA) and two
-// consumer warpgroups, registers moved to the consumers with setmaxnreg.
-// The prologue runs in the consumers between the chunk's arrival and its
-// first tap, four units' loads in flight at a time: its f32 arithmetic
-// with a rounding after every operation, and the add map's loads, are what
-// make the transformed links slower than the plain ones (fa against fb).
-// Neither interleaving it with the previous chunk's wgmma nor packed bf16
-// operations (which broke the statistics' 1e-4) made it cheaper. The
-// epilogue adds the bias, writes y as bf16 pairs, and reduces the
-// statistics from the wgmma fragments: warp shuffles over each warp's 16
-// rows, then the eight warps in a fixed order through shared memory. No
-// atomics: two launches give the same bits. The caller sums the
-// (B, n_blocks, 2, Cout) partials. The weights arrive as (3, 3, Cout, Cin)
-// (K contiguous); the wrapper transposes them.
+// consumer warpgroups. The epilogue adds the bias, writes y as bf16 pairs,
+// and reduces the statistics from the wgmma fragments: warp shuffles over
+// each warp's 16 rows, then the eight warps in a fixed order through
+// shared memory. No atomics: two launches give the same bits. The caller
+// sums the (B, n_blocks, 2, Cout) partials. The weights arrive as
+// (3, 3, Cout, Cin) (K contiguous); the wrapper transposes them. T is
+// computed on bf16 pairs (bf2_mul / bf2_add below: the same bits as the
+// TPU kernel's f32 operations each rounded to bf16).
+//
+// Two kernels share that loop:
+//
+// - conv_link_kernel: untransformed links, and transformed ones of one
+//   64-channel chunk (ne1, pr1). The consumers transform each halo stage
+//   between its arrival and its first tap (LinkTransform), the add map from
+//   global memory; registers moved to the consumers with setmaxnreg.
+// - conv_link_xf_kernel: transformed links of two or more 64-channel
+//   chunks and 64k output channels (fa; the 'add' chain's pr0), chosen by
+//   xf_path from the flags and the channels alone. The transform runs in
+//   warps of its own beside the tensor cores. Roles: the consumers (warps
+//   0-7) only wait and multiply; warp 8's first thread issues the weight
+//   tiles and, polling between them, each chunk's raw halo as soon as its
+//   stage is free; warps 9-11 wait for the halo ("full"), apply T in place
+//   piece by piece (half a halo row each), fence.proxy.async and arrive on
+//   a "stage ready" mbarrier (96 arrivals) that the consumers wait on, so
+//   chunk c + 1 is transformed while chunk c's nine taps run. The
+//   consumers release a stage ("empty") as before. The products run in the
+//   same (chunk, tap, k16) order and the epilogue is shared: y and the
+//   partials equal the untransformed link's on the plainly transformed
+//   input, bit for bit. Registers: consumers 192, the producer warpgroup
+//   120 (2 x 128 x 192 + 128 x 120 = 384 x 168). Shared memory, measured
+//   both ways on the H100 at the bs8 latent (8, 176, 608): at N = 256 the
+//   ring takes 198,656 bytes and six add pieces (55,296) do not fit, so
+//   the transform warps read the add map by 16-byte loads into registers,
+//   a piece ahead (fa 1.94 ms; 2.06 with three TMA-fed add buffers in the
+//   32 KB left); at N = 64 the ring takes 149,504 bytes and the add map
+//   comes by TMA, six pieces in buffers of their own beside it (206,848
+//   bytes in all; pr0 1.11 ms, against 1.22-1.28 with register loads).
+//   What bounds a transformed link now: at N = 256 the taps (tensor cores
+//   and the shared-memory reads of their operands), plus the first chunk's
+//   transform, which nothing overlaps (fa 1.13-1.25x fb); at N = 64 the
+//   transform warps themselves, whose taps take a fraction of a chunk's
+//   transform (pr0 1.04-1.12 ms, the same link untransformed 0.74 ms).
+//   The chains' flags (GroupNorm, ReLU, add, te) get a transform compiled
+//   for them; other flag sets read the flags at run time and load each
+//   piece's add map when the piece starts.
 //
 // The 16-wide links use the same loop: ne0 (Cin = 16) with 16-channel
 // chunks in 32-byte swizzled rows, pr1 (Cout = 16) with m64n16 wgmma, two
@@ -55,7 +87,85 @@ using namespace sm90;
 
 constexpr int F_GN = 1, F_RELU = 2, F_ADD = 4, F_TE = 8, F_STATS = 16;
 
-// T(x) in place on a halo stage: per 16-byte unit of 8 channels, the
+// bf16 pair arithmetic, each operation rounded once (rn, never fused: a
+// fused multiply-add rounds once for two operations and gives other bits).
+// T's operands are all bf16 (x, the add map, te, and the affine rounded
+// to bf16), so each f32 operation of the TPU kernel is exact or rounds
+// only far below a bf16 step before its own rounding to bf16: one bf16
+// operation gives the same bits (the product of two bf16 values is exact
+// in f32 above 2^-126; a sum is exact when the exponents differ by at most
+// 16, and otherwise rounds to the larger operand both ways).
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf2_relu(uint32_t a) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(0u));
+  return d;
+}
+
+// 16-byte shared-memory load and store at a shared-state-space address
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The per-(batch, channel) terms of T for the 8 channels [c, c + 8), as
+// bf16 pairs: the affine is rounded to bf16 and te is bf16, so the pairs
+// hold them exactly in half the registers.
+struct UnitTerms {
+  uint32_t ga[4], gb[4], tv[4];
+
+  __device__ UnitTerms(const float* aeff, const float* beff, const __nv_bfloat16* te, int i,
+                       int flags) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      ga[k] = (flags & F_GN) ? pair(aeff[i + 2 * k], aeff[i + 2 * k + 1]) : 0x3F803F80u;
+      gb[k] = (flags & F_GN) ? pair(beff[i + 2 * k], beff[i + 2 * k + 1]) : 0u;
+      tv[k] = (flags & F_TE) ? *reinterpret_cast<const uint32_t*>(te + i + 2 * k) : 0u;
+    }
+  }
+
+  __device__ static uint32_t pair(float lo, float hi) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+
+  // T on one 16-byte unit of x (and of the add map), four bf16 pairs
+  __device__ __forceinline__ uint4 operator()(const uint4& raw, const uint4& araw,
+                                              int flags) const {
+    uint32_t v[4] = {raw.x, raw.y, raw.z, raw.w};
+    const uint32_t t[4] = {araw.x, araw.y, araw.z, araw.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (flags & F_GN) v[k] = bf2_add(bf2_mul(v[k], ga[k]), gb[k]);
+      if (flags & F_RELU) v[k] = bf2_relu(v[k]);
+      if (flags & F_ADD) v[k] = bf2_add(v[k], (flags & F_TE) ? bf2_add(t[k], tv[k]) : t[k]);
+    }
+    return make_uint4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// T(x) in place on a halo stage, run by the consumers before the chunk's
+// taps (the one-chunk links): per 16-byte unit of 8 channels, the
 // in-image units only (the TMA zero fill stays for the others). A thread
 // always handles the same 8 channels of a chunk, so it reads their affine
 // and te once per chunk. The add map is read from global memory.
@@ -73,13 +183,7 @@ struct LinkTransform {
     static_assert(256 % KV == 0, "fixed channels per thread");
     const int kv = threadIdx.x % KV;
     const int c = chunk * Cfg::KC + kv * 8;
-    float ga[8], gb[8], tv[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      ga[k] = (flags & F_GN) ? rbf(aeff[b * Cin + c + k]) : 1.0f;
-      gb[k] = (flags & F_GN) ? rbf(beff[b * Cin + c + k]) : 0.0f;
-      tv[k] = (flags & F_TE) ? __bfloat162float(te[b * Cin + c + k]) : 0.0f;
-    }
+    const UnitTerms terms(aeff, beff, te, b * Cin + c, flags);
     // U units per round: their loads (the add map's from global memory)
     // are all issued before the first is used; the narrow tiles, at the
     // registers of two blocks per SM, take one
@@ -105,29 +209,8 @@ struct LinkTransform {
         }
       }
 #pragma unroll
-      for (int k = 0; k < U; ++k) {
-        if (!ok[k]) continue;
-        float v[8];
-        unpack8(raw[k], v);
-        if (flags & F_GN) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = rbf(rbf(v[e] * ga[e]) + gb[e]);
-        }
-        if (flags & F_RELU) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.0f);
-        }
-        if (flags & F_ADD) {
-          float av[8];
-          unpack8(araw[k], av);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float t = (flags & F_TE) ? rbf(av[e] + tv[e]) : av[e];
-            v[e] = rbf(v[e] + t);
-          }
-        }
-        *reinterpret_cast<uint4*>(A + off[k]) = pack8(v);
-      }
+      for (int k = 0; k < U; ++k)
+        if (ok[k]) *reinterpret_cast<uint4*>(A + off[k]) = terms(raw[k], araw[k], flags);
     }
   }
 };
@@ -136,44 +219,16 @@ struct NoFlip {
   __device__ int operator()(int tap) const { return tap; }
 };
 
-template <int BN, int KC>
-__global__ void __launch_bounds__(384, (Conv3x3<BN, KC>::MIN_BLOCKS)) conv_link_kernel(
-    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
-    const float* __restrict__ bias, const float* __restrict__ aeff,
-    const float* __restrict__ beff, const __nv_bfloat16* __restrict__ add,
-    const __nv_bfloat16* __restrict__ te, __nv_bfloat16* __restrict__ y,
-    float* __restrict__ partials, int H, int W, int Cin, int Cout, int n_wtiles, int flags) {
-  using Cfg = Conv3x3<BN, KC>;
-  extern __shared__ uint8_t smem_raw[];
-  const Cfg pipe(smem_raw);
-  // the output-channel blocks of one row segment are neighbours in launch
-  // order, so they find its input in L2
-  const int nz = Cout / BN;
-  const int n0 = (blockIdx.x % nz) * BN;
-  const int seg = blockIdx.x / nz;
-  const int h = seg / n_wtiles;
-  const int w0 = (seg % n_wtiles) * Cfg::BM;
-  const int b = blockIdx.y;
-  const int n_chunks = Cin / KC;
-  const bool transform = flags & (F_GN | F_RELU | F_ADD);
-  LinkTransform<Cfg> tr{transform, aeff, beff, add, te, b, h, w0, H, W, Cin, flags};
-
-  if (threadIdx.x == 0) pipe.init();
-  __syncthreads();
-  if (threadIdx.x >= 256) {  // the producer warpgroup
-    Cfg::producer_regs();
-    if (threadIdx.x == 256)
-      pipe.produce(&xmap, &wmap, b, h, w0, n0, n_chunks, NoFlip{});
-    return;
-  }
-  Cfg::consumer_regs();
-
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-  pipe.consume(acc, n_chunks, tr);
-
-  // epilogue: bias, bf16 y, and the statistics of the f32 values
+// The epilogue of both kernels, in the 256 consumer threads: bias, bf16 y,
+// and the statistics of the f32 values.
+template <class Cfg>
+__device__ __forceinline__ void link_epilogue(const Cfg& pipe, const float (&acc)[Cfg::BN / 2],
+                                              const float* __restrict__ bias,
+                                              __nv_bfloat16* __restrict__ y,
+                                              float* __restrict__ partials, int b, int h,
+                                              int w0, int n0, int seg, int H, int W, int Cout,
+                                              int n_wtiles, int flags) {
+  constexpr int BN = Cfg::BN;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m0 = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
@@ -223,6 +278,336 @@ __global__ void __launch_bounds__(384, (Conv3x3<BN, KC>::MIN_BLOCKS)) conv_link_
 }
 
 template <int BN, int KC>
+__global__ void __launch_bounds__(384, (Conv3x3<BN, KC>::MIN_BLOCKS)) conv_link_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const float* __restrict__ bias, const float* __restrict__ aeff,
+    const float* __restrict__ beff, const __nv_bfloat16* __restrict__ add,
+    const __nv_bfloat16* __restrict__ te, __nv_bfloat16* __restrict__ y,
+    float* __restrict__ partials, int H, int W, int Cin, int Cout, int n_wtiles, int flags) {
+  using Cfg = Conv3x3<BN, KC>;
+  extern __shared__ uint8_t smem_raw[];
+  const Cfg pipe(smem_raw);
+  // the output-channel blocks of one row segment are neighbours in launch
+  // order, so they find its input in L2
+  const int nz = Cout / BN;
+  const int n0 = (blockIdx.x % nz) * BN;
+  const int seg = blockIdx.x / nz;
+  const int h = seg / n_wtiles;
+  const int w0 = (seg % n_wtiles) * Cfg::BM;
+  const int b = blockIdx.y;
+  const int n_chunks = Cin / KC;
+  const bool transform = flags & (F_GN | F_RELU | F_ADD);
+  LinkTransform<Cfg> tr{transform, aeff, beff, add, te, b, h, w0, H, W, Cin, flags};
+
+  if (threadIdx.x == 0) pipe.init();
+  __syncthreads();
+  if (threadIdx.x >= 256) {  // the producer warpgroup
+    Cfg::producer_regs();
+    if (threadIdx.x == 256)
+      pipe.produce(&xmap, &wmap, b, h, w0, n0, n_chunks, NoFlip{});
+    return;
+  }
+  Cfg::consumer_regs();
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  pipe.consume(acc, n_chunks, tr);
+  link_epilogue(pipe, acc, bias, y, partials, b, h, w0, n0, seg, H, W, Cout, n_wtiles, flags);
+}
+
+// ---------------------------------------------------------------------------
+// the transformed links' path: T in warps of its own
+// ---------------------------------------------------------------------------
+
+// Conv3x3<BN, 64>'s ring and barriers, then a "stage ready" barrier per
+// halo stage. The transform warps take a halo stage in pieces of one halo
+// row's half (65 pixels); each thread always handles the same 8 channels
+// of a chunk. The add map comes one of two ways (measured; see the head
+// of this file): where a chunk's six pieces of it fit beside the ring
+// (BN = 64), by TMA into buffers of their own, each with a "full"
+// barrier; else (BN = 256) by 16-byte loads into registers, a piece ahead.
+template <int BN_>
+struct XfPipe : Conv3x3<BN_, 64> {
+  using Base = Conv3x3<BN_, 64>;
+  using Base::BAR_OFF;
+  using Base::HALO;
+  using Base::NB;
+  using Base::RB;
+  static constexpr int PIECE_PX = HALO / 2;
+  static constexpr int PIECES = 6;  // a chunk's halo: 3 rows x 2 halves
+  static constexpr int KV = 64 / 8;  // 16-byte units per halo pixel
+  static constexpr int UNITS = PIECE_PX * KV;  // units per piece
+  static constexpr uint32_t PIECE_BYTES = PIECE_PX * RB;
+  static constexpr uint32_t PIECE_STRIDE = (PIECE_BYTES + 1023) / 1024 * 1024;
+  static constexpr uint32_t XBAR_OFF = BAR_OFF + 8 * (4 + 2 * NB);
+  static constexpr uint32_t ADD_OFF = (XBAR_OFF + 8 * (2 + PIECES) + 1023) / 1024 * 1024;
+  static constexpr bool ADD_TMA = ADD_OFF + PIECES * PIECE_STRIDE + 1024 <= 232448;
+  static constexpr uint32_t SMEM =
+      ADD_TMA ? ADD_OFF + PIECES * PIECE_STRIDE + 1024 : XBAR_OFF + 8 * 2 + 1024;
+  // warps 8-11: warp 8's first thread issues the TMA loads, warps 9-11
+  // transform. The registers of the consumers and of that warpgroup
+  // (setmaxnreg) sum to the 384 x 168 the launch bound gives.
+  static constexpr int XF_THREADS = 96;
+  static constexpr int PER = (UNITS + XF_THREADS - 1) / XF_THREADS;  // units a thread, a piece
+  static constexpr int CONSUMER_REGS = 192, PRODUCER_REGS = 120;
+  static_assert(256 * CONSUMER_REGS + 128 * PRODUCER_REGS == 384 * 168, "register split");
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(PIECE_PX * 2 == HALO && XF_THREADS % KV == 0, "pieces");
+
+  __device__ explicit XfPipe(uint8_t* raw) : Base(raw) {}
+
+  __device__ uint64_t* a_ready(int i) const {
+    return reinterpret_cast<uint64_t*>(this->base + XBAR_OFF) + i;
+  }
+
+  __device__ uint64_t* add_full(int i) const {
+    return reinterpret_cast<uint64_t*>(this->base + XBAR_OFF) + 2 + i;
+  }
+  __device__ uint32_t add_buf(int i) const {
+    return smem_u32(this->base + ADD_OFF + i * PIECE_STRIDE);
+  }
+
+  __device__ void init() const {
+    Base::init();
+    for (int i = 0; i < 2; ++i) mbar_init(a_ready(i), XF_THREADS);
+    if (ADD_TMA)
+      for (int i = 0; i < PIECES; ++i) mbar_init(add_full(i), 1);
+    mbar_init_fence();
+  }
+
+  // The producer thread: the weight tiles in (chunk, tap) order as
+  // Conv3x3::produce loads them, and each chunk's raw halo as soon as its
+  // stage is free: it polls for that while it waits for a weight stage,
+  // so the transform of chunk c + 1 need not wait for chunk c's last
+  // weight tiles.
+  __device__ void produce(const CUtensorMap* xmap, const CUtensorMap* wmap, int b, int h,
+                          int w0, int n0, int n_chunks) const {
+    int cx = 0;  // the next chunk whose halo is to be loaded
+    auto load_x = [&]() {
+      const int a = cx & 1;
+      mbar_expect_tx(this->a_full(a), Base::A_BYTES);
+      tma_load_4d(this->a_stage(a), xmap, this->a_full(a), cx * 64, w0 - 1, h - 1, b);
+      ++cx;
+    };
+    auto x_free = [&]() {
+      return cx < n_chunks && mbar_test(this->a_empty(cx & 1), ((cx >> 1) & 1) ^ 1);
+    };
+    for (int i = 0; i < n_chunks * 9; ++i) {
+      const int s = i % NB;
+      const uint32_t parity = ((i / NB) & 1) ^ 1;
+      while (!mbar_test(this->b_empty(s), parity))
+        if (x_free()) load_x();
+      if (x_free()) load_x();
+      mbar_expect_tx(this->b_full(s), Base::B_BYTES);
+      tma_load_3d(this->b_stage(s), wmap, this->b_full(s), (i / 9) * 64, n0, i % 9);
+    }
+    while (cx < n_chunks) {
+      mbar_wait(this->a_empty(cx & 1), ((cx >> 1) & 1) ^ 1);
+      load_x();
+    }
+  }
+
+  // The consumers: each chunk's taps once the transform warps have
+  // published its stage.
+  __device__ void consume(float (&acc)[BN_ / 2], int n_chunks) const {
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(a_ready(c & 1), (c >> 1) & 1);
+      this->taps(acc, c);
+    }
+  }
+
+  // This thread's add-map units of piece j of chunk c into registers
+  // (16-byte loads, all issued before any is used); the units outside the
+  // image are never read.
+  __device__ __forceinline__ void load_add(uint4 (&d)[PER], const __nv_bfloat16* add, int c,
+                                           int j, int t, int b, int h, int w0, int H, int W,
+                                           int Cin) const {
+    const int hh = h + (j >> 1) - 1;
+    const int wl = w0 - 1 + (j & 1) * PIECE_PX;
+    if (hh < 0 || hh >= H) return;
+    const __nv_bfloat16* row = add + (static_cast<size_t>(b) * H + hh) * W * Cin + c * 64 +
+                               (t % KV) * 8;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int u = t + XF_THREADS * i;
+      const int ww = wl + u / KV;
+      if ((i + 1 < PER || u < UNITS) && ww >= 0 && ww < W)
+        d[i] = __ldg(reinterpret_cast<const uint4*>(row + static_cast<size_t>(ww) * Cin));
+    }
+  }
+
+  // T in place on this thread's units of a piece, FX the flags when known
+  // at compile time (else 0: flags), the add map from the piece's buffer D
+  // (ADD_TMA) or from registers. A piece wholly inside the image takes
+  // straight-line code: all of the thread's loads, then T and the stores.
+  // A piece on the image's left or right edge checks each unit (the TMA
+  // zero fill stays outside).
+  template <int FX, bool INSIDE>
+  __device__ __forceinline__ void piece(uint32_t A, uint32_t D, const uint4 (&ad)[PER],
+                                        const UnitTerms& terms, int t, int r, int p0, int wl,
+                                        int W, int flags) const {
+    const int fl = FX ? FX : flags;
+    constexpr int HALF = (PER + 1) / 2;  // units loaded together: half the registers
+    // unit i's pixel in the piece, whether it is to be transformed, and
+    // its halo-stage offset (recomputed rather than held in registers)
+    auto px = [&](int i) { return (t + XF_THREADS * i) / KV; };
+    auto ok = [&](int i) {
+      return i < PER && (i + 1 < PER || t + XF_THREADS * i < UNITS) &&
+             (INSIDE || (wl + px(i) >= 0 && wl + px(i) < W));
+    };
+    auto off = [&](int i) { return swz<RB>((r * HALO + p0 + px(i)) * RB + (t % KV) * 16); };
+#pragma unroll
+    for (int i0 = 0; i0 < PER; i0 += HALF) {
+      uint4 raw[HALF], araw[HALF];
+#pragma unroll
+      for (int q = 0; q < HALF; ++q) {
+        if (ok(i0 + q)) {
+          raw[q] = lds128(A + off(i0 + q));
+          if (ADD_TMA && (fl & F_ADD))
+            araw[q] = lds128(D + swz<RB>(px(i0 + q) * RB + (t % KV) * 16));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < HALF; ++q)
+        if (ok(i0 + q))
+          sts128(A + off(i0 + q),
+                 terms(raw[q], ADD_TMA ? araw[q] : ad[i0 + q < PER ? i0 + q : 0], fl));
+    }
+  }
+
+  // The transform warps: per chunk, wait for the raw halo, then T on it
+  // in place piece by piece; then fence.proxy.async and arrive on "stage
+  // ready". The add map: with ADD_TMA the first of these threads keeps six
+  // pieces of it in flight, refilling a buffer once all have read it;
+  // else the next piece's loads are issued before this piece's T.
+  template <int FX>
+  __device__ void transform(const CUtensorMap* amap, const __nv_bfloat16* add,
+                            const float* aeff, const float* beff, const __nv_bfloat16* te,
+                            int b, int h, int w0, int H, int W, int Cin, int n_chunks,
+                            int flags) const {
+    const int fl = FX ? FX : flags;
+    const bool has_add = fl & F_ADD;
+    const int t = threadIdx.x - (384 - XF_THREADS);
+    const int ch = b * Cin + (t % KV) * 8;  // this thread's first channel of chunk 0
+    const int total = n_chunks * PIECES;
+    auto issue = [&](int k) {  // piece k of the add map into buffer k % PIECES by TMA
+      const int j = k % PIECES;
+      mbar_expect_tx(add_full(j), PIECE_BYTES);
+      tma_load_4d(this->base + ADD_OFF + j * PIECE_STRIDE, amap, add_full(j), (k / PIECES) * 64,
+                  w0 - 1 + (j & 1) * PIECE_PX, h + (j >> 1) - 1, b);
+    };
+    // the chains' flags prefetch the add map a piece ahead; the other
+    // flag sets, in registers enough for flags known only at run time,
+    // load each piece's when it starts
+    constexpr bool AHEAD = FX != 0;
+    uint4 next[PER];
+    if (has_add) {
+      if (ADD_TMA) {
+        if (t == 0)
+          for (int k = 0; k < PIECES && k < total; ++k) issue(k);
+      } else if (AHEAD) {
+        load_add(next, add, 0, 0, t, b, h, w0, H, W, Cin);
+      }
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      const UnitTerms terms(aeff, beff, te, ch + c * 64, fl);
+      const int a = c & 1;
+      const uint32_t A = smem_u32(this->a_stage(a));
+      mbar_wait(this->a_full(a), (c >> 1) & 1);
+      for (int j = 0; j < PIECES; ++j) {
+        const int k = c * PIECES + j;
+        uint4 cur[PER];
+        if (has_add) {
+          if (ADD_TMA) {
+            mbar_wait(add_full(j), (k / PIECES) & 1);
+          } else if (AHEAD) {
+#pragma unroll
+            for (int i = 0; i < PER; ++i) cur[i] = next[i];
+            if (k + 1 < total)
+              load_add(next, add, (k + 1) / PIECES, (k + 1) % PIECES, t, b, h, w0, H, W, Cin);
+          } else {
+            load_add(cur, add, c, j, t, b, h, w0, H, W, Cin);
+          }
+        }
+        const int hh = h + (j >> 1) - 1;
+        const int wl = w0 - 1 + (j & 1) * PIECE_PX;  // the piece's first image column
+        if (hh >= 0 && hh < H) {
+          if (wl >= 0 && wl + PIECE_PX <= W)
+            piece<FX, true>(A, add_buf(j), cur, terms, t, j >> 1, (j & 1) * PIECE_PX, wl, W,
+                            flags);
+          else
+            piece<FX, false>(A, add_buf(j), cur, terms, t, j >> 1, (j & 1) * PIECE_PX, wl, W,
+                             flags);
+        }
+        if (ADD_TMA && has_add) {
+          named_sync<2, XF_THREADS>();  // every transform thread is done with buffer j
+          if (t == 0 && k + PIECES < total) issue(k + PIECES);
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(a_ready(a));
+    }
+  }
+};
+
+// The flags of the links that take this path in the chains (fa, the 'add'
+// chain's pr0): their transform is compiled for them
+constexpr int XF_CHAIN = F_GN | F_RELU | F_ADD | F_TE;
+
+template <int BN, int KC>
+__global__ void __launch_bounds__(384, 1) conv_link_xf_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap amap, const float* __restrict__ bias,
+    const float* __restrict__ aeff, const float* __restrict__ beff,
+    const __nv_bfloat16* __restrict__ add, const __nv_bfloat16* __restrict__ te,
+    __nv_bfloat16* __restrict__ y, float* __restrict__ partials, int H, int W, int Cin,
+    int Cout, int n_wtiles, int flags) {
+  static_assert(KC == 64, "64-channel chunks");
+  using Pipe = XfPipe<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const Pipe pipe(smem_raw);
+  const int nz = Cout / BN;
+  const int n0 = (blockIdx.x % nz) * BN;
+  const int seg = blockIdx.x / nz;
+  const int h = seg / n_wtiles;
+  const int w0 = (seg % n_wtiles) * Pipe::BM;
+  const int b = blockIdx.y;
+  const int n_chunks = Cin / KC;
+
+  if (threadIdx.x == 0) pipe.init();
+  __syncthreads();
+  if (threadIdx.x >= 256) {  // the producer warpgroup: loads and the transform
+    setmaxnreg_dec<Pipe::PRODUCER_REGS>();
+    if (threadIdx.x == 256)
+      pipe.produce(&xmap, &wmap, b, h, w0, n0, n_chunks);
+    else if (threadIdx.x >= 384 - Pipe::XF_THREADS) {
+      if ((flags & XF_CHAIN) == XF_CHAIN)
+        pipe.template transform<XF_CHAIN>(&amap, add, aeff, beff, te, b, h, w0, H, W, Cin,
+                                          n_chunks, flags);
+      else
+        pipe.template transform<0>(&amap, add, aeff, beff, te, b, h, w0, H, W, Cin, n_chunks,
+                                   flags);
+    }
+    return;
+  }
+  setmaxnreg_inc<Pipe::CONSUMER_REGS>();
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  pipe.consume(acc, n_chunks);
+  link_epilogue(pipe, acc, bias, y, partials, b, h, w0, n0, seg, H, W, Cout, n_wtiles, flags);
+}
+
+// Whether a link takes conv_link_xf_kernel: its input is transformed, it
+// has at least two 64-channel chunks (so one chunk's transform can run
+// beside another's taps) and 64k output channels.
+bool xf_path(int Cin, int Cout, int flags) {
+  return (flags & (F_GN | F_RELU | F_ADD)) && Cin % 64 == 0 && Cin >= 128 && Cout % 64 == 0;
+}
+
+template <int BN, int KC>
 int launch(const void* x, const void* wk, const float* bias, const float* aeff,
            const float* beff, const __nv_bfloat16* add, const __nv_bfloat16* te,
            __nv_bfloat16* y, float* partials, int B, int H, int W, int Cin, int Cout, int flags,
@@ -233,12 +618,31 @@ int launch(const void* x, const void* wk, const float* bias, const float* aeff,
   if (err != 0) return err;
   err = encode_taps(&wmap, wk, Cout, Cin, KC, BN);
   if (err != 0) return err;
-  auto kernel = conv_link_kernel<BN, KC>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(Cfg::SMEM));
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int n_wtiles = (W + Cfg::BM - 1) / Cfg::BM;
   dim3 grid(n_wtiles * H * (Cout / BN), B);
+  cudaError_t e;
+  if constexpr (KC == 64 && BN >= 64) {
+    if (xf_path(Cin, Cout, flags)) {
+      using Pipe = XfPipe<BN>;
+      CUtensorMap amap = xmap;  // unused unless the add map comes by TMA
+      if (Pipe::ADD_TMA && (flags & F_ADD)) {
+        err = encode_nhwc(&amap, add, B, H, W, Cin, KC, Pipe::PIECE_PX, 1);
+        if (err != 0) return err;
+      }
+      auto kernel = conv_link_xf_kernel<BN, KC>;
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Pipe::SMEM));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      kernel<<<grid, Cfg::THREADS, Pipe::SMEM, s>>>(xmap, wmap, amap, bias, aeff, beff, add, te,
+                                                     y, partials, H, W, Cin, Cout, n_wtiles,
+                                                     flags);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  auto kernel = conv_link_kernel<BN, KC>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(Cfg::SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, Cfg::THREADS, Cfg::SMEM, s>>>(xmap, wmap, bias, aeff, beff, add, te, y,
                                                 partials, H, W, Cin, Cout, n_wtiles, flags);
   return static_cast<int>(cudaGetLastError());
@@ -264,6 +668,11 @@ int launch_n(const void* x, const void* wk, const float* bias, const float* aeff
 }  // namespace
 
 extern "C" int conv_link_block_pixels() { return Conv3x3<64, 64>::BM; }
+
+// 1 when a launch with these channels and flags takes conv_link_xf_kernel
+extern "C" int conv_link_xf_path(int Cin, int Cout, int flags) {
+  return xf_path(Cin, Cout, flags) ? 1 : 0;
+}
 
 // x, add: (B, H, W, Cin) bf16; wk: (3, 3, Cout, Cin) bf16, the link's
 // weights with K (Cin) contiguous; bias: (Cout,) f32; aeff, beff: (B, Cin)

@@ -125,6 +125,16 @@ def _conv_link_lib():
 CONV_LINK_BLOCK_PIXELS = 128
 
 
+def conv_link_xf_path(cin: int, cout: int, transformed: bool) -> bool:
+    """Whether K1 runs a link on its transform-warp path
+    (``conv_link_xf_kernel``): an input transform (GroupNorm affine, ReLU
+    or the add) over at least two 64-channel chunks, so that one chunk's
+    transform runs beside the previous chunk's products, into 64k output
+    channels. In the chains: fa ('upsample_add') and pr0 ('add'). The
+    library's ``conv_link_xf_path`` makes the same choice."""
+    return transformed and cin % 64 == 0 and cin >= 128 and cout % 64 == 0
+
+
 def conv_link_partials_shape(B: int, H: int, W: int, cout: int, device_type: str):
     """Shape of K1's partials: one per block of ``CONV_LINK_BLOCK_PIXELS``
     pixels of an image row on the card, one per image from the plain version."""
@@ -185,7 +195,7 @@ def conv_link_cuda(x, w, bias, aeff, beff, relu, add, te, stats):
     if te is not None:
         expect.append((te, (B, cin), BF16))
     native.check_tensors("conv_link", expect, x.device)
-    native.check_aligned("conv_link", x, w)
+    native.check_aligned("conv_link", x, w, *([add] if add is not None else []))
     lib_fn = _conv_link_lib()
     y = torch.empty((B, H, W, cout), dtype=BF16, device=x.device)
     partials = (torch.empty(conv_link_partials_shape(B, H, W, cout, "cuda"),
@@ -201,6 +211,8 @@ def conv_link_cuda(x, w, bias, aeff, beff, relu, add, te, stats):
                      torch.cuda.current_stream(x.device).cuda_stream)
     native.check(err, "conv_link")
     native.LAUNCHES["conv_link"] += 1
+    if conv_link_xf_path(cin, cout, bool(flags & (_F_GN | _F_RELU | _F_ADD))):
+        native.LAUNCHES["conv_link_xf"] += 1
     return y, partials
 
 

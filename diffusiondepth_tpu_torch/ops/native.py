@@ -9,7 +9,9 @@ module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name. A wrapper adds one
 exactly where it launches its kernel; calls that take the plain PyTorch
-version (CPU tensors) add nothing. ``H2D`` counts the copies of host data
+version (CPU tensors) add nothing. ``conv_link_xf`` counts the K1
+launches that take its transform-warp path, which ``conv_link`` counts
+too. ``H2D`` counts the copies of host data
 to the card that the program makes at each call, and their bytes: every
 such copy goes through ``to_device``. Both are read per span by
 ``trace.py``. ``triton_module`` loads a Triton source
@@ -37,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 LAUNCHES: Dict[str, int] = {
-    "conv_link": 0, "ddim_step": 0, "window_attention": 0,
+    "conv_link": 0, "conv_link_xf": 0, "ddim_step": 0, "window_attention": 0,
     "sched_step": 0, "conv_link_bwd": 0, "sched_bwd": 0, "window_attention_bwd": 0,
     "window_attention_split": 0, "layernorm_fwd": 0, "layernorm_bwd": 0,
 }

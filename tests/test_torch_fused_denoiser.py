@@ -250,6 +250,40 @@ def test_chain_links_follow_the_module(fuse, links):
         pden.ScheduledCNNRefine(32, 16, fuse="upsample_concat", dtype=BF).chain_flat()
 
 
+# (B, H, W) of the latents the chain runs at: bs8 serve at 352x1216, the
+# X4 model's serve latent, a training micro-batch of 352x906 crops
+_LATENTS = {"serve": (8, 176, 608), "x4": (8, 88, 304), "train": (4, 176, 453)}
+
+
+@pytest.mark.parametrize("latent", sorted(_LATENTS))
+@pytest.mark.parametrize("fuse,names,xf", [
+    ("upsample_add", ("ne0", "ne1", "fa", "fb", "pr0", "pr1"), "fa"),
+    ("add", ("ne0", "ne1", "pr0", "pr1"), "pr0")])
+def test_xf_path_routes_one_link_a_chain(fuse, names, xf, latent):
+    """K1's transform-warp path takes exactly the link whose transformed
+    input has more than one 64-channel chunk: fa in the six-link chain,
+    pr0 in the 'add' chain's four. ne1 and pr1 (transformed, one chunk),
+    ne0, fb and the six-link chain's pr0 (untransformed) keep K1's own
+    loop, at every latent. The links see broadcast zeros: no arithmetic."""
+    m = pden.ScheduledCNNRefine(256, 16, fuse=fuse, dtype=BF)
+    B, H, W = _LATENTS[latent]
+    routed = []
+
+    def link(x, w, bias, aeff=None, beff=None, relu=False, add=None, te=None, stats=False):
+        cin, cout = w.shape[2], w.shape[3]
+        assert x.shape == (B, H, W, cin)
+        transformed = aeff is not None or relu or add is not None
+        routed.append(pfd.conv_link_xf_path(cin, cout, transformed))
+        y = torch.zeros((), dtype=BF).expand(B, H, W, cout)
+        return y, (torch.ones(B, 1, 2, cout) if stats else None)
+
+    x = torch.zeros((), dtype=BF).expand(B, H, W, 16)
+    cond = torch.zeros((), dtype=BF).expand(B, H, W, 256)
+    with torch.no_grad():
+        pfd.chain_forward(m.chain_params(), x, cond, torch.zeros(B, 256, dtype=BF), link)
+    assert routed == [n == xf for n in names]
+
+
 @pytest.mark.parametrize("n_leaves", [0, 14, 18, 22])
 def test_chain_keys_refuse_other_counts(n_leaves):
     """A flat list with a leaf missing or added is refused, not read as

@@ -66,6 +66,62 @@ def test_conv_link_matches_plain(dev, cin, cout, gn, add, stats, B, H, w):
         assert (s - sp).abs().max() <= 1e-4 * sp.abs().max()
 
 
+# the transformed links that take K1's transform-warp path: fa (256 ->
+# 256, GroupNorm, ReLU, add and te; also with stats), the 'add' chain's pr0
+# (256 -> 64 with stats), and two flag sets the chains do not use (their
+# transform reads the flags at run time): GroupNorm and ReLU without the
+# add map, the add map and te alone, on both output widths; at the serve
+# latent and the ragged shapes above
+@pytest.mark.parametrize("cout,gn,add,stats", [
+    (256, True, True, False), (256, True, True, True), (64, True, True, True),
+    (64, True, False, True), (256, False, True, True), (64, False, True, False)],
+    ids=["fa", "fa-stats", "add-pr0", "gn-only", "add-only-256", "add-only-64"])
+@pytest.mark.parametrize("B,H,w", [(8, 176, 608), (2, 6, 129), (3, 1, 5), (3, 2, 257)])
+def test_conv_link_xf_matches_untransformed_link(dev, cout, gn, add, stats, B, H, w):
+    """A link on the transform-warp path equals, bit for bit (y and
+    partials), the untransformed link on the plainly transformed input:
+    the same products in the same order. Counted as one conv_link and one
+    conv_link_xf launch; the untransformed link as one conv_link only."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf, cin = torch.bfloat16, 256
+    x = torch.randn(B, H, w, cin, generator=g, device=dev).to(bf)
+    wt = (torch.randn(3, 3, cin, cout, generator=g, device=dev) / (9 * cin) ** 0.5).to(bf)
+    bias = torch.randn(cout, generator=g, device=dev) * 0.1
+    kw = {}
+    if gn:
+        kw.update(aeff=1 + 0.1 * torch.randn(B, cin, generator=g, device=dev),
+                  beff=0.1 * torch.randn(B, cin, generator=g, device=dev), relu=True)
+    if add:
+        kw.update(add=torch.randn(B, H, w, cin, generator=g, device=dev).to(bf),
+                  te=(0.1 * torch.randn(B, cin, generator=g, device=dev)).to(bf))
+    assert fd.conv_link_xf_path(cin, cout, True)
+    n0 = dict(LAUNCHES)
+    y, ps = fd.conv_link(x, wt, bias, stats=stats, **kw)
+    assert LAUNCHES["conv_link_xf"] == n0["conv_link_xf"] + 1
+    v = fd._link_input_plain(x, kw.get("aeff"), kw.get("beff"), gn, kw.get("add"),
+                             kw.get("te")).to(bf).contiguous()
+    y_u, ps_u = fd.conv_link(v, wt, bias, stats=stats)
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv_link"] == n0["conv_link"] + 2
+    assert LAUNCHES["conv_link_xf"] == n0["conv_link_xf"] + 1
+    assert torch.equal(y, y_u)
+    assert (ps is None) == (not stats)
+    if stats:
+        assert torch.equal(ps, ps_u)
+
+
+def test_conv_link_xf_path_matches_library(dev):
+    """The Python routing rule that counts conv_link_xf launches makes the
+    library's choice for every flag set and a spread of channel counts."""
+    lib = fd.native.load("conv_link")
+    for cin in (16, 64, 80, 128, 192, 256, 512):
+        for cout in (16, 64, 128, 256, 512):
+            for flags in range(32):
+                transformed = bool(flags & 7)
+                assert bool(lib.conv_link_xf_path(cin, cout, flags)) == fd.conv_link_xf_path(
+                    cin, cout, transformed), (cin, cout, flags)
+
+
 def test_ddim_step_matches_plain(dev):
     g = torch.Generator(device=dev).manual_seed(1)
     u6 = torch.randn(2, 5, 7, 16, generator=g, device=dev).to(torch.bfloat16)
@@ -414,7 +470,9 @@ def test_family_launch_counts(dev, family):
     the MPViT head's 'upsample_add' 6): n K1 + 1 K3 per eval step, and in
     training per sampler step n K1 + K2 forward and n K1 + K6 + n K5
     backward, plus the ddim_loss call's n K1 and its backward's n K1 + n
-    K5. No attention or LayerNorm kernel runs on either."""
+    K5. One K1 of each n, the transformed 256-channel link (pr0 or fa),
+    takes the transform-warp path (conv_link_xf). No attention or
+    LayerNorm kernel runs on either."""
     steps = 2
     cfg = port.Config(model_name="Diffusion_DCbase_", inference_steps=steps, opt_level="O1",
                       batch_size=2, **_FAMILIES[family]).finalize()
@@ -427,7 +485,7 @@ def test_family_launch_counts(dev, family):
     pred, met, _ = port.make_eval_step(model)(batch, generator=g)
     torch.cuda.synchronize()
     want = {k: 0 for k in LAUNCHES}
-    want.update(conv_link=links * steps, ddim_step=steps)
+    want.update(conv_link=links * steps, conv_link_xf=steps, ddim_step=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(pred).all()) and bool(torch.isfinite(met).all())
 
@@ -437,8 +495,8 @@ def test_family_launch_counts(dev, family):
     loss, _, _ = step(batch, generator=g)
     torch.cuda.synchronize()
     want = {k: 0 for k in LAUNCHES}
-    want.update(conv_link=2 * links * (steps + 1), sched_step=steps,
-                conv_link_bwd=links * (steps + 1), sched_bwd=steps)
+    want.update(conv_link=2 * links * (steps + 1), conv_link_xf=2 * (steps + 1),
+                sched_step=steps, conv_link_bwd=links * (steps + 1), sched_bwd=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(loss))
 
@@ -503,7 +561,8 @@ def test_x4_and_concat_launch_counts(dev, model_name, head):
     batch of 2. The X4 model's latent (16 x 24) takes the fused chain: per
     eval step 6 K1 + 1 K3, in training per sampler step 6 K1 + K2 forward
     and 6 K1 + K6 + 6 K5 backward, plus the ddim_loss call's 6 K1 and its
-    backward's 6 K1 + 6 K5. The concat head runs its denoiser on cuDNN: no
+    backward's 6 K1 + 6 K5, one K1 of each 6 (fa) on the transform-warp
+    path (conv_link_xf). The concat head runs its denoiser on cuDNN: no
     K1-K3, K5 or K6. Both run K4 once a block, again in the
     rematerialised backward, and K7 once a block."""
     steps, blocks = 2, 5
@@ -522,7 +581,7 @@ def test_x4_and_concat_launch_counts(dev, model_name, head):
     want = {k: 0 for k in LAUNCHES}
     want["window_attention"] = blocks
     if chain:
-        want.update(conv_link=6 * steps, ddim_step=steps)
+        want.update(conv_link=6 * steps, conv_link_xf=steps, ddim_step=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(pred).all()) and bool(torch.isfinite(met).all())
 
@@ -534,8 +593,8 @@ def test_x4_and_concat_launch_counts(dev, model_name, head):
     want = {k: 0 for k in LAUNCHES}
     want.update(window_attention=2 * blocks, window_attention_bwd=blocks)
     if chain:
-        want.update(conv_link=2 * 6 * (steps + 1), sched_step=steps,
-                    conv_link_bwd=6 * (steps + 1), sched_bwd=steps)
+        want.update(conv_link=2 * 6 * (steps + 1), conv_link_xf=2 * (steps + 1),
+                    sched_step=steps, conv_link_bwd=6 * (steps + 1), sched_bwd=steps)
     assert dict(LAUNCHES) == want
     assert bool(torch.isfinite(loss))
 
@@ -594,7 +653,8 @@ def test_ops_match_direct_launch(dev):
 def test_exported_flagship_matches_eager(dev, tmp_path):
     """swin_micro under the flagship head (bf16, 2 steps, 64x96): the
     exported predict step, saved and loaded, equals the eager step bit for
-    bit on the card, with the eager path's K1, K3 and K4 launches."""
+    bit on the card, with the eager path's K1 (fa's on the transform-warp
+    path), K3 and K4 launches."""
     from diffusiondepth_tpu_torch.tools import export_model as em
 
     cfg = port.Config(model_name="Diffusion_DCbase_", backbone_module="swin",
@@ -614,6 +674,7 @@ def test_exported_flagship_matches_eager(dev, tmp_path):
         got = module(batch, lat)
         torch.cuda.synchronize()
     assert LAUNCHES["conv_link"] == 12 and LAUNCHES["ddim_step"] == 2
+    assert LAUNCHES["conv_link_xf"] == 2
     assert LAUNCHES["window_attention"] == 5
     assert torch.equal(got, want)
 
