@@ -37,14 +37,16 @@
 //
 // Two kernels share that loop:
 //
-// - conv_link_kernel: untransformed links, and transformed ones of one
-//   64-channel chunk (ne1, pr1). The consumers transform each halo stage
-//   between its arrival and its first tap (LinkTransform), the add map from
-//   global memory; registers moved to the consumers with setmaxnreg.
-// - conv_link_xf_kernel: transformed links of two or more 64-channel
-//   chunks and 64k output channels (fa; the 'add' chain's pr0), chosen by
-//   xf_path from the flags and the channels alone. The transform runs in
-//   warps of its own beside the tensor cores. Roles: the consumers (warps
+// - conv_link_kernel: untransformed links, transformed ones of one
+//   64-channel chunk (ne1, pr1), and any flag set but the chains'. The
+//   consumers transform each halo stage between its arrival and its first
+//   tap (LinkTransform), the add map from global memory; registers moved
+//   to the consumers with setmaxnreg.
+// - conv_link_xf_kernel: links with the chains' transform (GroupNorm,
+//   ReLU, the add map and te) over two or more 64-channel chunks into 64k
+//   output channels (fa; the 'add' chain's pr0), chosen by xf_path from the
+//   flags and the channels alone. The transform, compiled for those flags,
+//   runs in warps of its own beside the tensor cores. Roles: the consumers (warps
 //   0-7) only wait and multiply; warp 8's first thread issues the weight
 //   tiles and, polling between them, each chunk's raw halo as soon as its
 //   stage is free; warps 9-11 wait for the halo ("full"), apply T in place
@@ -68,9 +70,6 @@
 //   transform, which nothing overlaps (fa 1.13-1.25x fb); at N = 64 the
 //   transform warps themselves, whose taps take a fraction of a chunk's
 //   transform (pr0 1.04-1.12 ms, the same link untransformed 0.74 ms).
-//   The chains' flags (GroupNorm, ReLU, add, te) get a transform compiled
-//   for them; other flag sets read the flags at run time and load each
-//   piece's add map when the piece starts.
 //
 // The 16-wide links use the same loop: ne0 (Cin = 16) with 16-channel
 // chunks in 32-byte swizzled rows, pr1 (Cout = 16) with m64n16 wgmma, two
@@ -113,7 +112,8 @@ __device__ __forceinline__ uint32_t bf2_relu(uint32_t a) {
   return d;
 }
 
-// 16-byte shared-memory load and store at a shared-state-space address
+// 16-byte shared-memory load and store at a shared-state-space address;
+// the store only where p holds, predicated rather than branched around
 __device__ __forceinline__ uint4 lds128(uint32_t addr) {
   uint4 v;
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
@@ -122,10 +122,12 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
   return v;
 }
 
-__device__ __forceinline__ void sts128(uint32_t addr, const uint4& v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
+__device__ __forceinline__ void sts128_if(bool p, uint32_t addr, const uint4& v) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %5, 0;\n"
+      " @q st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n}\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(static_cast<int>(p))
+      : "memory");
 }
 
 // The per-(batch, channel) terms of T for the 8 channels [c, c + 8), as
@@ -320,6 +322,10 @@ __global__ void __launch_bounds__(384, (Conv3x3<BN, KC>::MIN_BLOCKS)) conv_link_
 // the transformed links' path: T in warps of its own
 // ---------------------------------------------------------------------------
 
+// The flags of the links that take this path in the chains (fa, the 'add'
+// chain's pr0): the only transform it is compiled for
+constexpr int XF_CHAIN = F_GN | F_RELU | F_ADD | F_TE;
+
 // Conv3x3<BN, 64>'s ring and barriers, then a "stage ready" barrier per
 // halo stage. The transform warps take a halo stage in pieces of one halo
 // row's half (65 pixels); each thread always handles the same 8 channels
@@ -437,17 +443,17 @@ struct XfPipe : Conv3x3<BN_, 64> {
     }
   }
 
-  // T in place on this thread's units of a piece, FX the flags when known
-  // at compile time (else 0: flags), the add map from the piece's buffer D
-  // (ADD_TMA) or from registers. A piece wholly inside the image takes
-  // straight-line code: all of the thread's loads, then T and the stores.
-  // A piece on the image's left or right edge checks each unit (the TMA
-  // zero fill stays outside).
-  template <int FX, bool INSIDE>
+  // T in place on this thread's units of a piece, the add map from the
+  // piece's buffer D (ADD_TMA) or from registers. Straight-line code: all
+  // of the thread's loads (a unit left as it is reads unit 0's place), then
+  // T and predicated stores of the units to transform. A piece on the
+  // image's left or right edge also checks each unit's column (the TMA zero
+  // fill stays outside). Measured (H100, bs8 latent): the 'add' pr0 link
+  // took 4-6% longer when the units' loads and stores were branched around.
+  template <bool INSIDE>
   __device__ __forceinline__ void piece(uint32_t A, uint32_t D, const uint4 (&ad)[PER],
                                         const UnitTerms& terms, int t, int r, int p0, int wl,
-                                        int W, int flags) const {
-    const int fl = FX ? FX : flags;
+                                        int W) const {
     constexpr int HALF = (PER + 1) / 2;  // units loaded together: half the registers
     // unit i's pixel in the piece, whether it is to be transformed, and
     // its halo-stage offset (recomputed rather than held in registers)
@@ -462,17 +468,14 @@ struct XfPipe : Conv3x3<BN_, 64> {
       uint4 raw[HALF], araw[HALF];
 #pragma unroll
       for (int q = 0; q < HALF; ++q) {
-        if (ok(i0 + q)) {
-          raw[q] = lds128(A + off(i0 + q));
-          if (ADD_TMA && (fl & F_ADD))
-            araw[q] = lds128(D + swz<RB>(px(i0 + q) * RB + (t % KV) * 16));
-        }
+        const int i = ok(i0 + q) ? i0 + q : 0;
+        raw[q] = lds128(A + off(i));
+        if (ADD_TMA) araw[q] = lds128(D + swz<RB>(px(i) * RB + (t % KV) * 16));
       }
 #pragma unroll
       for (int q = 0; q < HALF; ++q)
-        if (ok(i0 + q))
-          sts128(A + off(i0 + q),
-                 terms(raw[q], ADD_TMA ? araw[q] : ad[i0 + q < PER ? i0 + q : 0], fl));
+        sts128_if(ok(i0 + q), A + off(i0 + q),
+                  terms(raw[q], ADD_TMA ? araw[q] : ad[i0 + q < PER ? i0 + q : 0], XF_CHAIN));
     }
   }
 
@@ -481,13 +484,9 @@ struct XfPipe : Conv3x3<BN_, 64> {
   // ready". The add map: with ADD_TMA the first of these threads keeps six
   // pieces of it in flight, refilling a buffer once all have read it;
   // else the next piece's loads are issued before this piece's T.
-  template <int FX>
   __device__ void transform(const CUtensorMap* amap, const __nv_bfloat16* add,
                             const float* aeff, const float* beff, const __nv_bfloat16* te,
-                            int b, int h, int w0, int H, int W, int Cin, int n_chunks,
-                            int flags) const {
-    const int fl = FX ? FX : flags;
-    const bool has_add = fl & F_ADD;
+                            int b, int h, int w0, int H, int W, int Cin, int n_chunks) const {
     const int t = threadIdx.x - (384 - XF_THREADS);
     const int ch = b * Cin + (t % KV) * 8;  // this thread's first channel of chunk 0
     const int total = n_chunks * PIECES;
@@ -497,50 +496,38 @@ struct XfPipe : Conv3x3<BN_, 64> {
       tma_load_4d(this->base + ADD_OFF + j * PIECE_STRIDE, amap, add_full(j), (k / PIECES) * 64,
                   w0 - 1 + (j & 1) * PIECE_PX, h + (j >> 1) - 1, b);
     };
-    // the chains' flags prefetch the add map a piece ahead; the other
-    // flag sets, in registers enough for flags known only at run time,
-    // load each piece's when it starts
-    constexpr bool AHEAD = FX != 0;
     uint4 next[PER];
-    if (has_add) {
-      if (ADD_TMA) {
-        if (t == 0)
-          for (int k = 0; k < PIECES && k < total; ++k) issue(k);
-      } else if (AHEAD) {
-        load_add(next, add, 0, 0, t, b, h, w0, H, W, Cin);
-      }
+    if (ADD_TMA) {
+      if (t == 0)
+        for (int k = 0; k < PIECES && k < total; ++k) issue(k);
+    } else {
+      load_add(next, add, 0, 0, t, b, h, w0, H, W, Cin);
     }
     for (int c = 0; c < n_chunks; ++c) {
-      const UnitTerms terms(aeff, beff, te, ch + c * 64, fl);
+      const UnitTerms terms(aeff, beff, te, ch + c * 64, XF_CHAIN);
       const int a = c & 1;
       const uint32_t A = smem_u32(this->a_stage(a));
       mbar_wait(this->a_full(a), (c >> 1) & 1);
       for (int j = 0; j < PIECES; ++j) {
         const int k = c * PIECES + j;
         uint4 cur[PER];
-        if (has_add) {
-          if (ADD_TMA) {
-            mbar_wait(add_full(j), (k / PIECES) & 1);
-          } else if (AHEAD) {
+        if (ADD_TMA) {
+          mbar_wait(add_full(j), (k / PIECES) & 1);
+        } else {
 #pragma unroll
-            for (int i = 0; i < PER; ++i) cur[i] = next[i];
-            if (k + 1 < total)
-              load_add(next, add, (k + 1) / PIECES, (k + 1) % PIECES, t, b, h, w0, H, W, Cin);
-          } else {
-            load_add(cur, add, c, j, t, b, h, w0, H, W, Cin);
-          }
+          for (int i = 0; i < PER; ++i) cur[i] = next[i];
+          if (k + 1 < total)
+            load_add(next, add, (k + 1) / PIECES, (k + 1) % PIECES, t, b, h, w0, H, W, Cin);
         }
         const int hh = h + (j >> 1) - 1;
         const int wl = w0 - 1 + (j & 1) * PIECE_PX;  // the piece's first image column
         if (hh >= 0 && hh < H) {
           if (wl >= 0 && wl + PIECE_PX <= W)
-            piece<FX, true>(A, add_buf(j), cur, terms, t, j >> 1, (j & 1) * PIECE_PX, wl, W,
-                            flags);
+            piece<true>(A, add_buf(j), cur, terms, t, j >> 1, (j & 1) * PIECE_PX, wl, W);
           else
-            piece<FX, false>(A, add_buf(j), cur, terms, t, j >> 1, (j & 1) * PIECE_PX, wl, W,
-                             flags);
+            piece<false>(A, add_buf(j), cur, terms, t, j >> 1, (j & 1) * PIECE_PX, wl, W);
         }
-        if (ADD_TMA && has_add) {
+        if (ADD_TMA) {
           named_sync<2, XF_THREADS>();  // every transform thread is done with buffer j
           if (t == 0 && k + PIECES < total) issue(k + PIECES);
         }
@@ -550,10 +537,6 @@ struct XfPipe : Conv3x3<BN_, 64> {
     }
   }
 };
-
-// The flags of the links that take this path in the chains (fa, the 'add'
-// chain's pr0): their transform is compiled for them
-constexpr int XF_CHAIN = F_GN | F_RELU | F_ADD | F_TE;
 
 template <int BN, int KC>
 __global__ void __launch_bounds__(384, 1) conv_link_xf_kernel(
@@ -581,14 +564,8 @@ __global__ void __launch_bounds__(384, 1) conv_link_xf_kernel(
     setmaxnreg_dec<Pipe::PRODUCER_REGS>();
     if (threadIdx.x == 256)
       pipe.produce(&xmap, &wmap, b, h, w0, n0, n_chunks);
-    else if (threadIdx.x >= 384 - Pipe::XF_THREADS) {
-      if ((flags & XF_CHAIN) == XF_CHAIN)
-        pipe.template transform<XF_CHAIN>(&amap, add, aeff, beff, te, b, h, w0, H, W, Cin,
-                                          n_chunks, flags);
-      else
-        pipe.template transform<0>(&amap, add, aeff, beff, te, b, h, w0, H, W, Cin, n_chunks,
-                                   flags);
-    }
+    else if (threadIdx.x >= 384 - Pipe::XF_THREADS)
+      pipe.transform(&amap, add, aeff, beff, te, b, h, w0, H, W, Cin, n_chunks);
     return;
   }
   setmaxnreg_inc<Pipe::CONSUMER_REGS>();
@@ -600,11 +577,11 @@ __global__ void __launch_bounds__(384, 1) conv_link_xf_kernel(
   link_epilogue(pipe, acc, bias, y, partials, b, h, w0, n0, seg, H, W, Cout, n_wtiles, flags);
 }
 
-// Whether a link takes conv_link_xf_kernel: its input is transformed, it
-// has at least two 64-channel chunks (so one chunk's transform can run
-// beside another's taps) and 64k output channels.
+// Whether a link takes conv_link_xf_kernel: its input takes the chains'
+// transform (XF_CHAIN), it has at least two 64-channel chunks (so one
+// chunk's transform can run beside another's taps) and 64k output channels.
 bool xf_path(int Cin, int Cout, int flags) {
-  return (flags & (F_GN | F_RELU | F_ADD)) && Cin % 64 == 0 && Cin >= 128 && Cout % 64 == 0;
+  return (flags & XF_CHAIN) == XF_CHAIN && Cin % 64 == 0 && Cin >= 128 && Cout % 64 == 0;
 }
 
 template <int BN, int KC>
@@ -625,7 +602,7 @@ int launch(const void* x, const void* wk, const float* bias, const float* aeff,
     if (xf_path(Cin, Cout, flags)) {
       using Pipe = XfPipe<BN>;
       CUtensorMap amap = xmap;  // unused unless the add map comes by TMA
-      if (Pipe::ADD_TMA && (flags & F_ADD)) {
+      if (Pipe::ADD_TMA) {
         err = encode_nhwc(&amap, add, B, H, W, Cin, KC, Pipe::PIECE_PX, 1);
         if (err != 0) return err;
       }

@@ -1,7 +1,8 @@
 """DDIM scheduler (port of ``diffusiondepth_tpu/diffusion/ddim.py``).
 
-Tables are built once in float32 numpy and moved to the device once; the
-sampling loop indexes them on the device, so no step waits for the host.
+Tables are built once in float32 numpy and moved to the device once
+(``DDIMSchedule.table_on``, ``native.constant``); the sampling loop indexes
+them on the device, so no step waits for the host.
 All scheduler math stays float32: ``1 - alpha_prod`` underflows in bf16 near
 t=0 and poisons the epsilon re-derivation.
 """
@@ -10,12 +11,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..ops.native import to_device
+from ..ops.native import constant, to_device
 
 
 def make_betas(
@@ -85,6 +86,9 @@ class DDIMSchedule:
             object.__setattr__(
                 self, "alphas_cumprod",
                 np.cumprod(1.0 - self.betas, axis=0).astype(np.float32))
+        # what the tables depend on: the key of their copies on a device
+        object.__setattr__(self, "key", (self.alphas_cumprod.tobytes(), self.set_alpha_to_one,
+                                         self.steps_offset))
 
     @property
     def final_alpha_cumprod(self) -> float:
@@ -131,8 +135,24 @@ class DDIMSchedule:
         ).astype(np.float32)
         return InferenceTables(timesteps, alpha_t, alpha_prev)
 
+    def table_on(self, device, name: str, num_inference_steps: int,
+                 timesteps: Union[None, str, Sequence[int]] = None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``inference_tables``' ``name`` (a field, or 'sched') on
+        ``device``, made and copied once (``native.constant``).
+        ``timesteps``: None (uniform), 'biased' or the sequence."""
+        seq = timesteps if timesteps is None or isinstance(timesteps, str) else tuple(
+            np.asarray(timesteps).tolist())
+
+        def make():
+            ts = self.biased_timesteps(num_inference_steps) if seq == "biased" else timesteps
+            tables = self.inference_tables(num_inference_steps, ts)
+            return tables.sched() if name == "sched" else getattr(tables, name)
+
+        return constant(("ddim", self.key, name, num_inference_steps, seq), make, device, dtype)
+
     def _sqrt_alphas(self, timesteps: torch.Tensor, like: torch.Tensor):
-        acp = to_device(self.alphas_cumprod, like.device, like.dtype)
+        acp = constant(("ddim", self.key), lambda: self.alphas_cumprod, like.device, like.dtype)
         a = acp[timesteps.to(like.device)]
         a = a.reshape(a.shape + (1,) * (like.ndim - a.ndim))
         return torch.sqrt(a), torch.sqrt(1.0 - a)
@@ -209,11 +229,11 @@ class DDIMSchedule:
         """The timestep-indexed (diffusers-style) step: the alphas of
         ``timestep`` and of ``timestep - num_train_timesteps //
         num_inference_steps`` (``final_alpha_cumprod`` below 0)."""
-        acp = to_device(self.alphas_cumprod, sample.device)
+        acp = constant(("ddim", self.key), lambda: self.alphas_cumprod, sample.device)
         t = to_device(timestep, sample.device)
         prev_t = t - self.num_train_timesteps // num_inference_steps
         alpha_prev = torch.where(prev_t >= 0, acp[prev_t.clamp_min(0)],
-                                 to_device(self.final_alpha_cumprod, acp.device, acp.dtype))
+                                 self.final_alpha_cumprod)
         return self.step_from_alphas(model_output, sample, acp[t], alpha_prev, eta,
                                      use_clipped_model_output, variance_noise)
 
@@ -238,16 +258,16 @@ class DDIMSchedule:
         None). ``latent`` hands in the starting latent instead. Returns the
         final latent, and with ``return_trajectory`` also every step's
         latent stacked (steps, *shape)."""
-        tables = self.inference_tables(num_inference_steps, timesteps)
         if latent is None:
             latent = torch.randn(shape, generator=generator, dtype=dtype,
                                  device=generator.device if generator is not None else "cpu")
         x = latent.to(dtype)
-        ts = to_device(tables.timesteps, x.device)
-        a_t = to_device(tables.alpha_prod_t, x.device, x.dtype)
-        a_prev = to_device(tables.alpha_prod_prev, x.device, x.dtype)
+        ts = self.table_on(x.device, "timesteps", num_inference_steps, timesteps)
+        a_t = self.table_on(x.device, "alpha_prod_t", num_inference_steps, timesteps, x.dtype)
+        a_prev = self.table_on(x.device, "alpha_prod_prev", num_inference_steps, timesteps,
+                               x.dtype)
         traj = []
-        for i in range(len(tables.timesteps)):
+        for i in range(ts.shape[0]):
             vnoise = (torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
                       if eta > 0 else None)
             x, _ = self.step_from_alphas(denoise_fn(x, ts[i]), x, a_t[i], a_prev[i], eta,

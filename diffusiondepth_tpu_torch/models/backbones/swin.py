@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import functools
 import warnings
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ...ops.native import to_device
+from ...ops.native import constant
 from ...ops.window_attention import (
     WindowAttentionQKV, window_attention_einsum, window_attention_split,
 )
@@ -67,16 +67,15 @@ def _warn_once(key: str, msg: str) -> None:
         warnings.warn(msg)
 
 
-@functools.lru_cache(maxsize=None)
-def relative_position_index(wh: int, ww: int) -> np.ndarray:
-    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))
-    coords = coords.reshape(2, -1)
-    rel = coords[:, :, None] - coords[:, None, :]
-    rel = rel.transpose(1, 2, 0).astype(np.int64)
-    rel[:, :, 0] += wh - 1
-    rel[:, :, 1] += ww - 1
-    rel[:, :, 0] *= 2 * ww - 1
-    return rel.sum(-1)
+def relative_position_index(wh: int, ww: int, device="cpu") -> torch.Tensor:
+    """(wh * ww, wh * ww) int64: each token pair's row of the bias table,
+    computed with torch on ``device`` (so that an exported program computes
+    it on the card instead of copying a host constant there)."""
+    ys, xs = torch.meshgrid(torch.arange(wh, device=device), torch.arange(ww, device=device),
+                            indexing="ij")
+    ys, xs = ys.reshape(-1), xs.reshape(-1)
+    return ((ys[:, None] - ys[None, :] + wh - 1) * (2 * ww - 1)
+            + xs[:, None] - xs[None, :] + ww - 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,10 +144,6 @@ class WindowMSA(nn.Module):
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
-        self.register_buffer(
-            "relative_position_index",
-            torch.from_numpy(relative_position_index(window_size, window_size).reshape(-1)),
-            persistent=False)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 drops: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
@@ -161,9 +156,11 @@ class WindowMSA(nn.Module):
         attn_keep = drops.get("attn")
         qkv = linear(x, self.qkv, self.dtype)
         table = whole(self.relative_position_bias_table)
-        # the index buffer is made from numpy and stays on the host (build_model
-        # places only what torch makes on the device): a copy at each call
-        bias = table[to_device(self.relative_position_index, table.device)]
+        ws = self.window_size
+        index = constant(("swin_rel_index", ws),
+                         lambda: relative_position_index(ws, ws, table.device).reshape(-1),
+                         table.device)
+        bias = table[index]
         bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1).float().contiguous()
         fused = self.fused_qkv_attention and not self.use_pallas
         if fused and attn_keep is not None:
@@ -223,20 +220,13 @@ class SwinBlock(nn.Module):
                                    fused_qkv_attention, attn_drop_rate, drop_rate)
         self.norm2 = nn.LayerNorm(embed_dims, eps=1e-5)
         self.ffn = FFN(embed_dims, feedforward_channels)
-        self._masks: Dict[Tuple, torch.Tensor] = {}
 
     def _mask(self, h_pad: int, w_pad: int, device: torch.device) -> torch.Tensor:
-        """The shift mask, made on ``device`` and cached by size and device.
-        While ``torch.export`` traces, it is made anew and not cached: it is
-        a fake tensor there, which a later eager call must not find, and the
-        program computes it on the device."""
-        key = (h_pad, w_pad, str(device))
-        if key in self._masks:
-            return self._masks[key]
-        mask = shifted_window_mask_on(h_pad, w_pad, self.window_size, self.shift, device)
-        if not torch.compiler.is_compiling():
-            self._masks[key] = mask
-        return mask
+        """The shift mask, made on ``device`` once (``native.constant``; an
+        exported program computes it on the device)."""
+        ws, shift = self.window_size, self.shift
+        return constant(("swin_shift_mask", h_pad, w_pad, ws, shift),
+                        lambda: shifted_window_mask_on(h_pad, w_pad, ws, shift, device), device)
 
     def draw_dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]
                      ) -> Optional[Dict[str, torch.Tensor]]:

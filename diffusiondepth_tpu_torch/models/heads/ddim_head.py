@@ -45,7 +45,6 @@ import torch.nn as nn
 
 from ...diffusion.ddim import DDIMSchedule
 from ...ops.fused_denoiser import FusedSamplerStep, ddim_step, denoiser_chain
-from ...ops.native import to_device
 from ...ops.resize import adaptive_avg_pool2d
 from ...parallel.mesh import draw_rows
 from ...registry import HEADS
@@ -123,37 +122,36 @@ class DDIMDepthEstimateHead(nn.Module):
             dev = cond_latent.device
             traj = [] if self.vis else None
             fused = self.model.fused_active(latent_shape[1])
-            with span("sampler.tables"):  # with their copies, the time embeddings, the latent
-                ts = (self.schedule.biased_timesteps(self.inference_steps)
-                      if self.timestep_schedule == "biased" else None)
-                tables = self.schedule.inference_tables(self.inference_steps, ts)
-                timesteps = to_device(tables.timesteps, dev)
+            with span("sampler.tables"):  # the tables, the time embeddings, the latent
+                n = self.inference_steps
+                seq = "biased" if self.timestep_schedule == "biased" else None
+                timesteps = self.schedule.table_on(dev, "timesteps", n, seq)
                 if init_latent is not None:
                     x = init_latent.to(device=dev, dtype=torch.float32).contiguous()
                 else:
                     x = draw_rows(torch.randn, latent_shape, generator=generator, device=dev,
                                   dtype=torch.float32)
                 if fused:
-                    sched = to_device(tables.sched(), dev)
+                    sched = self.schedule.table_on(dev, "sched", n, seq)
                     cond = cond_latent.to(torch.bfloat16).contiguous()
                     te_all = self.model.time_embed(timesteps)  # (steps, C) bf16
                 else:
-                    a_t = to_device(tables.alpha_prod_t, dev)
-                    a_prev = to_device(tables.alpha_prod_prev, dev)
+                    a_t = self.schedule.table_on(dev, "alpha_prod_t", n, seq)
+                    a_prev = self.schedule.table_on(dev, "alpha_prod_prev", n, seq)
 
             if fused:  # epsilon prediction, no clipping
                 b = x.shape[0]
                 if self.training:  # the (f32, bf16) latent pair, differentiable
                     flat = self.model.chain_flat()
                     xb = x.to(torch.bfloat16)
-                    for i in range(len(tables.timesteps)):
+                    for i in range(timesteps.shape[0]):
                         te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
                         x, xb = FusedSamplerStep.apply(x, xb, cond, te_b, sched[i], *flat)
                         if traj is not None:
                             traj.append(x)
                     return x, traj
                 params = self.model.chain_params()
-                for i in range(len(tables.timesteps)):
+                for i in range(timesteps.shape[0]):
                     with span("sampler.step"):
                         with span("sampler.denoise"):
                             te_b = te_all[i].expand(b, te_all.shape[-1]).contiguous()
@@ -164,7 +162,7 @@ class DDIMDepthEstimateHead(nn.Module):
                         traj.append(x)
                 return x, traj
 
-            for i in range(len(tables.timesteps)):
+            for i in range(timesteps.shape[0]):
                 with span("sampler.step"):
                     with span("sampler.denoise"):
                         eps = self.model(x, timesteps[i], cond_latent).float()

@@ -25,9 +25,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.msda import MultiScaleDeformableAttention
+from ...ops.native import constant
 from ...parallel.tensor import whole
 from ..common import BatchNorm2d, conv2d_nhwc, linear
-from .positional_encoding import SinePositionalEncoding, TensorCache
+from .positional_encoding import SinePositionalEncoding
 
 
 class ConvModule(nn.Module):
@@ -89,7 +90,6 @@ class HAHIHeteroNeck(nn.Module):
 
         if self_att or cross_att:
             self.positional_encoding = SinePositionalEncoding(pe_num_feats)
-            self._reference_points = TensorCache()
             self.level_embed = nn.Parameter(torch.randn(4, e))  # the reference's 4 slots
 
         def msda():
@@ -112,8 +112,8 @@ class HAHIHeteroNeck(nn.Module):
         level_embed = whole(self.level_embed)
         pos = torch.cat([self.positional_encoding.table(h, w, dev, dt) + level_embed[i].to(dt)
                          for i, (h, w) in enumerate(shapes)], 1)
-        ref = self._reference_points(tuple(shapes), lambda: _grid_reference_points(shapes),
-                                     dev, dt)
+        ref = constant((_grid_reference_points, tuple(shapes)),
+                       lambda: _grid_reference_points(shapes), dev, dt)
         ref = ref[None, :, None, :].expand(src.shape[0], -1, len(shapes), 2)
         return self.self_attn(src, None, pos, ref, shapes, generator=generator)
 

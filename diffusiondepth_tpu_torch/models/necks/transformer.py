@@ -29,10 +29,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.msda import MultiScaleDeformableAttention
+from ...ops.native import constant
 from ...parallel.tensor import whole
 from ..common import layer_norm, linear
 from .hahi import _grid_reference_points
-from .positional_encoding import SinePositionalEncoding, TensorCache
+from .positional_encoding import SinePositionalEncoding
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -107,7 +108,6 @@ class PureMSDEnTransformer(nn.Module):
         self.embed_dims = embed_dims
         self.level_embeds = nn.Parameter(torch.randn(num_levels, embed_dims))
         self.positional_encoding = SinePositionalEncoding(pe_num_feats)
-        self._reference_points = TensorCache()
         self.encoder = DeformableDetrEncoder(num_layers, embed_dims, num_heads, num_levels,
                                              num_points, feedforward_channels, dtype)
 
@@ -125,8 +125,8 @@ class PureMSDEnTransformer(nn.Module):
         pos = torch.cat([self.positional_encoding.table(h, w, dev, f.dtype)
                          + level_embeds[i].to(f.dtype)
                          for i, ((h, w), f) in enumerate(zip(shapes, mlvl_feats))], 1)
-        ref = self._reference_points(tuple(shapes), lambda: _grid_reference_points(shapes),
-                                     dev, dt)
+        ref = constant((_grid_reference_points, tuple(shapes)),
+                       lambda: _grid_reference_points(shapes), dev, dt)
         ref = ref[None, :, None, :].expand(b, -1, len(shapes), 2)
         memory = self.encoder(src, pos.expand(b, -1, -1), ref, shapes, generator)
         return [m.reshape(b, h, w, e)

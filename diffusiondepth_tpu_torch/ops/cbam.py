@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.common import ConvBNAct, conv2d_nhwc, linear
-from .native import to_device
+from .native import constant
 
 
 class ChannelAttention(nn.Module):
@@ -88,7 +88,7 @@ class CBAMWithPosEmbed(nn.Module):
         yy, xx = torch.meshgrid(torch.arange(h, device=x.device),
                                 torch.arange(w, device=x.device), indexing="ij")
         pos = torch.stack([xx, yy], dim=-1).to(dt)
-        pos = pos / to_device([w, h], x.device, dt) - 0.5
+        pos = pos / constant(("cbam_size", w, h), lambda: [w, h], x.device, dt) - 0.5
         f = F.relu(linear(pos, self.pos_embed[0], self.dtype))
         f = F.relu(linear(f, self.pos_embed[1], self.dtype))
         x_r = x_r + f[None]

@@ -53,6 +53,7 @@ from . import native
 
 BF16 = torch.bfloat16
 _F_GN, _F_RELU, _F_ADD, _F_TE, _F_STATS = 1, 2, 4, 8, 16
+_XF_CHAIN = _F_GN | _F_RELU | _F_ADD | _F_TE  # the transform of fa and the 'add' chain's pr0
 _B_GN_NEXT, _B_GN_IN, _B_ADD, _B_TE = 1, 2, 4, 8
 
 CHAIN_KEYS = ("ne0", "gn0", "ne1", "gn1", "fa", "fb", "pr0", "gn2", "pr1", "gn3")
@@ -125,14 +126,22 @@ def _conv_link_lib():
 CONV_LINK_BLOCK_PIXELS = 128
 
 
-def conv_link_xf_path(cin: int, cout: int, transformed: bool) -> bool:
-    """Whether K1 runs a link on its transform-warp path
-    (``conv_link_xf_kernel``): an input transform (GroupNorm affine, ReLU
-    or the add) over at least two 64-channel chunks, so that one chunk's
-    transform runs beside the previous chunk's products, into 64k output
-    channels. In the chains: fa ('upsample_add') and pr0 ('add'). The
-    library's ``conv_link_xf_path`` makes the same choice."""
-    return transformed and cin % 64 == 0 and cin >= 128 and cout % 64 == 0
+def link_flags(aeff, relu, add, te, stats) -> int:
+    """K1's flags for a link with these arguments (``conv_link``'s)."""
+    return ((_F_GN if aeff is not None else 0) | (_F_RELU if relu else 0)
+            | (_F_ADD if add is not None else 0) | (_F_TE if te is not None else 0)
+            | (_F_STATS if stats else 0))
+
+
+def conv_link_xf_path(cin: int, cout: int, flags: int) -> bool:
+    """Whether K1 runs a link of ``flags`` (``link_flags``) on its
+    transform-warp path (``conv_link_xf_kernel``): the chains' transform
+    (fa, the 'add' chain's pr0) over at least two 64-channel chunks, so
+    that one chunk's transform runs beside the previous chunk's products,
+    into 64k output channels. The library's ``conv_link_xf_path`` makes
+    the same choice."""
+    return (flags & _XF_CHAIN == _XF_CHAIN and cin % 64 == 0 and cin >= 128
+            and cout % 64 == 0)
 
 
 def conv_link_partials_shape(B: int, H: int, W: int, cout: int, device_type: str):
@@ -200,9 +209,7 @@ def conv_link_cuda(x, w, bias, aeff, beff, relu, add, te, stats):
     y = torch.empty((B, H, W, cout), dtype=BF16, device=x.device)
     partials = (torch.empty(conv_link_partials_shape(B, H, W, cout, "cuda"),
                             dtype=torch.float32, device=x.device) if stats else None)
-    flags = ((_F_GN if aeff is not None else 0) | (_F_RELU if relu else 0)
-             | (_F_ADD if add is not None else 0) | (_F_TE if te is not None else 0)
-             | (_F_STATS if stats else 0))
+    flags = link_flags(aeff, relu, add, te, stats)
     # the kernel reads the weights with K (Cin) contiguous: (3, 3, Cout, Cin)
     wk = w.transpose(2, 3).contiguous()
     with torch.cuda.device(x.device):  # the launch goes to the current device
@@ -211,7 +218,7 @@ def conv_link_cuda(x, w, bias, aeff, beff, relu, add, te, stats):
                      torch.cuda.current_stream(x.device).cuda_stream)
     native.check(err, "conv_link")
     native.LAUNCHES["conv_link"] += 1
-    if conv_link_xf_path(cin, cout, bool(flags & (_F_GN | _F_RELU | _F_ADD))):
+    if conv_link_xf_path(cin, cout, flags):
         native.LAUNCHES["conv_link_xf"] += 1
     return y, partials
 

@@ -12,10 +12,11 @@ exactly where it launches its kernel; calls that take the plain PyTorch
 version (CPU tensors) add nothing. ``conv_link_xf`` counts the K1
 launches that take its transform-warp path, which ``conv_link`` counts
 too. ``H2D`` counts the copies of host data
-to the card that the program makes at each call, and their bytes: every
-such copy goes through ``to_device``. Both are read per span by
-``trace.py``. ``triton_module`` loads a Triton source
-of ``csrc/`` the same way, at first use.
+to the card that the program makes, and their bytes: every such copy goes
+through ``to_device``. Both are read per span by ``trace.py``. A constant
+made on the host (a table, an index, a scale) is copied once per process,
+through ``constant``. ``triton_module`` loads a Triton source of ``csrc/``
+the same way, at first use.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -46,6 +47,7 @@ LAUNCHES: Dict[str, int] = {
 
 H2D: Dict[str, int] = {"h2d_copies": 0, "h2d_bytes": 0}
 
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _TRITON: Dict[str, object] = {}
 
@@ -59,13 +61,33 @@ def to_device(data, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor
     """``data`` (an array, a number or a tensor) as a tensor of ``dtype``
     on ``device``: made on the host, then copied. A copy from the host to
     another device is counted in ``H2D``; a tensor already on a device
-    stays there (cast to ``dtype``)."""
+    stays there (cast to ``dtype``). For data that differs from call to
+    call: a constant goes through ``constant``, a copy waits for the
+    stream to drain."""
     host = torch.as_tensor(data, dtype=dtype)
     out = host.to(device)
     if host.device.type == "cpu" and out.device.type != "cpu":
         H2D["h2d_copies"] += 1
         H2D["h2d_bytes"] += out.nbytes
     return out
+
+
+def constant(key: Tuple, make: Callable[[], object], device,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``make()`` (an array, a list, a number, or a tensor it makes on the
+    device) as a tensor of ``dtype`` on ``device``, made and copied
+    (``to_device``) once per (key, device, dtype) for the life of the
+    process. ``key`` names everything the value depends on; callers treat
+    the tensor as read-only. While a program is traced (``torch.export``)
+    the value is made anew and not kept: a kept fake tensor would outlive
+    the trace."""
+    if torch.compiler.is_compiling():
+        return to_device(make(), device, dtype)
+    full = (key, torch.device(device), dtype)
+    t = _CONSTANTS.get(full)
+    if t is None:
+        t = _CONSTANTS[full] = to_device(make(), device, dtype)
+    return t
 
 
 def no_autograd(kernel: str, *tensors) -> None:

@@ -4,7 +4,8 @@
 Bilinear resize and adaptive average pooling are separable: two small
 dense products with matrices built in numpy, matching
 ``torch.nn.functional.interpolate`` and ``adaptive_avg_pool2d`` window
-arithmetic. The matrices take the input's dtype, as in the JAX package, so
+arithmetic, and copied to the device once (``native.constant``), as are
+the nearest indices. The matrices take the input's dtype, as in the JAX package, so
 a bf16 map is resized with bf16 weights. Nearest resize gathers the rows
 and columns torch's legacy 'nearest' picks, floor(i * in / out) in integer
 arithmetic; adaptive max pooling is torch's, whose windows are the same.
@@ -12,17 +13,15 @@ arithmetic; adaptive max pooling is torch's, whose windows are the same.
 
 from __future__ import annotations
 
-import functools
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .native import to_device
+from .native import constant
 
 
-@functools.lru_cache(maxsize=None)
 def _bilinear_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
     m = np.zeros((out_size, in_size), dtype=np.float32)
     if out_size == 1:
@@ -44,7 +43,6 @@ def _bilinear_matrix(in_size: int, out_size: int, align_corners: bool) -> np.nda
     return m
 
 
-@functools.lru_cache(maxsize=None)
 def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
     m = np.zeros((out_size, in_size), dtype=np.float32)
     for i in range(out_size):
@@ -54,9 +52,15 @@ def _adaptive_avg_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-def _apply_hw_matrices(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
-    mh = to_device(mh, x.device).to(x.dtype)
-    mw = to_device(mw, x.device).to(x.dtype)
+def _table(x: torch.Tensor, make: Callable[..., np.ndarray], *args, dtype=None) -> torch.Tensor:
+    """``make(*args)`` on ``x``'s device, made and copied once."""
+    return constant((make, *args), lambda: make(*args), x.device, dtype)
+
+
+def _apply_hw_matrices(x: torch.Tensor, make: Callable[..., np.ndarray], h_args: Tuple,
+                       w_args: Tuple) -> torch.Tensor:
+    mh = _table(x, make, *h_args, dtype=x.dtype)
+    mw = _table(x, make, *w_args, dtype=x.dtype)
     x = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("ow,bhwc->bhoc", mw, x)
 
@@ -67,11 +71,8 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
     h_out, w_out = size
     if (h_in, w_in) == (h_out, w_out):
         return x
-    return _apply_hw_matrices(
-        x,
-        _bilinear_matrix(h_in, h_out, align_corners),
-        _bilinear_matrix(w_in, w_out, align_corners),
-    )
+    return _apply_hw_matrices(x, _bilinear_matrix, (h_in, h_out, align_corners),
+                              (w_in, w_out, align_corners))
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: Tuple[int, int]) -> torch.Tensor:
@@ -79,11 +80,9 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size: Tuple[int, int]) -> torch.
     h_out, w_out = output_size
     if (h_in, w_in) == (h_out, w_out):
         return x
-    return _apply_hw_matrices(
-        x, _adaptive_avg_matrix(h_in, h_out), _adaptive_avg_matrix(w_in, w_out))
+    return _apply_hw_matrices(x, _adaptive_avg_matrix, (h_in, h_out), (w_in, w_out))
 
 
-@functools.lru_cache(maxsize=None)
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.minimum((np.arange(out_size) * in_size) // out_size, in_size - 1)
 
@@ -93,9 +92,8 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     h_out, w_out = size
     if (h_in, w_in) == (h_out, w_out):
         return x
-    rows = to_device(_nearest_index(h_in, h_out), x.device)
-    cols = to_device(_nearest_index(w_in, w_out), x.device)
-    return x.index_select(1, rows).index_select(2, cols)
+    return (x.index_select(1, _table(x, _nearest_index, h_in, h_out))
+            .index_select(2, _table(x, _nearest_index, w_in, w_out)))
 
 
 def adaptive_max_pool2d(x: torch.Tensor, output_size: Tuple[int, int]) -> torch.Tensor:

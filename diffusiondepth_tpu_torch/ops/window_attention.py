@@ -33,7 +33,6 @@ from typing import Optional
 import torch
 
 from . import native
-from .native import to_device
 
 HEAD_DIM = 32
 MAX_TOKENS = 64
@@ -42,6 +41,12 @@ MAX_TOKENS = 64
 # dbias partition is a pure function of the shapes.
 BWD_SMS = 132
 BWD_BLOCKS_PER_SM = 4
+
+
+def _scale_like(scale: float, x: torch.Tensor) -> torch.Tensor:
+    """The softmax scale as a 0-d tensor of ``x``'s dtype on its device (a
+    constant, copied once)."""
+    return native.constant(("attention_scale", scale), lambda: scale, x.device, x.dtype)
 
 
 def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
@@ -61,7 +66,7 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
     d = c // num_heads
     dt = qkv.dtype
     q6 = qkv.reshape(b, nw, n, 3, num_heads, d)
-    sc = to_device(scale, qkv.device, dt)
+    sc = _scale_like(scale, qkv)
     q = (q6[..., 0, :, :] * sc).float()
     k = q6[..., 1, :, :].float()
     v = q6[..., 2, :, :].float()
@@ -91,7 +96,7 @@ def window_attention_einsum(qkv: torch.Tensor, bias: torch.Tensor,
     c = c3 // 3
     dt = qkv.dtype
     q, k, v = qkv.reshape(b, nw, n, 3, num_heads, c // num_heads).unbind(3)
-    q = q * to_device(scale, qkv.device, dt)
+    q = q * _scale_like(scale, qkv)
     attn = torch.einsum("bwqhd,bwkhd->bwhqk", q, k) + bias.to(dt)[None, None]
     if mask is not None:
         attn = attn + mask.to(dt)[None, :, None]
@@ -180,7 +185,7 @@ def window_attention_bwd_plain(qkv: torch.Tensor, bias: torch.Tensor,
     d = c // num_heads
     dt = qkv.dtype
     q6 = qkv.reshape(b, nw, n, 3, num_heads, d)
-    sc = to_device(scale, qkv.device, dt)
+    sc = _scale_like(scale, qkv)
     qs = (q6[..., 0, :, :] * sc).float()
     q, k, v = (q6[..., i, :, :].float() for i in range(3))
     attn = torch.einsum("bwqhd,bwkhd->bwhqk", qs, k) + bias.float()[None, None]
@@ -280,7 +285,7 @@ def window_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     to the input type before P.v, and P.v accumulates in f32. Returns
     (B, nW, H, N, D) in the input type."""
     dt = q.dtype
-    sc = to_device(scale, q.device, dt)
+    sc = _scale_like(scale, q)
     attn = torch.einsum("bwhnd,bwhmd->bwhnm", (q * sc).float(), k.float())
     attn = attn + bias.float()[None, None]
     if mask is not None:

@@ -31,9 +31,9 @@ of the same ``correlation``), as ``tools/analyze_trace.py`` does.
 
 The counters are ``ops/native.py``'s, always on, plain integer
 increments: ``H2D["h2d_copies"]`` and ``H2D["h2d_bytes"]``, counted by
-``native.to_device``, which every per-call copy of host data to the card
-goes through, and the kernel launches of ``LAUNCHES`` (the family
-``launches``).
+``native.to_device``, which every copy of host data to the card goes
+through (a constant's one copy too, ``native.constant``), and the kernel
+launches of ``LAUNCHES`` (the family ``launches``).
 
 Spans are meant for one thread: the one that runs the program.
 """

@@ -24,6 +24,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import diffusiondepth_tpu_torch as port  # noqa: E402
+from diffusiondepth_tpu_torch.ops import native  # noqa: E402
 from diffusiondepth_tpu_torch.tools import export_model as em  # noqa: E402
 from diffusiondepth_tpu_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 
@@ -148,8 +149,8 @@ def test_export_flagship_head_swin_micro(tmp_path):
     with torch.no_grad():
         eager = em.make_predict_fn(model)(batch, lat)
         got = em.load_exported(path).module()(batch, lat)
-    masks = [m for blk in model.modules() if hasattr(blk, "_masks") for m in blk._masks.values()]
-    assert masks and all(type(m) is torch.Tensor for m in masks)
+    masks = [t for k, t in native._CONSTANTS.items() if k[0][0] == "swin_shift_mask"]
+    assert masks and all(type(t) is torch.Tensor for t in native._CONSTANTS.values())
     assert torch.equal(got, eager)
 
 

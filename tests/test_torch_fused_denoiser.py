@@ -260,11 +260,12 @@ _LATENTS = {"serve": (8, 176, 608), "x4": (8, 88, 304), "train": (4, 176, 453)}
     ("upsample_add", ("ne0", "ne1", "fa", "fb", "pr0", "pr1"), "fa"),
     ("add", ("ne0", "ne1", "pr0", "pr1"), "pr0")])
 def test_xf_path_routes_one_link_a_chain(fuse, names, xf, latent):
-    """K1's transform-warp path takes exactly the link whose transformed
-    input has more than one 64-channel chunk: fa in the six-link chain,
-    pr0 in the 'add' chain's four. ne1 and pr1 (transformed, one chunk),
-    ne0, fb and the six-link chain's pr0 (untransformed) keep K1's own
-    loop, at every latent. The links see broadcast zeros: no arithmetic."""
+    """K1's transform-warp path takes exactly the link whose input takes
+    the chains' transform (GroupNorm, ReLU, the add map and te) over more
+    than one 64-channel chunk: fa in the six-link chain, pr0 in the 'add'
+    chain's four. ne1 and pr1 (transformed, one chunk), ne0, fb and the
+    six-link chain's pr0 (untransformed) keep K1's own loop, at every
+    latent. The links see broadcast zeros: no arithmetic."""
     m = pden.ScheduledCNNRefine(256, 16, fuse=fuse, dtype=BF)
     B, H, W = _LATENTS[latent]
     routed = []
@@ -272,8 +273,8 @@ def test_xf_path_routes_one_link_a_chain(fuse, names, xf, latent):
     def link(x, w, bias, aeff=None, beff=None, relu=False, add=None, te=None, stats=False):
         cin, cout = w.shape[2], w.shape[3]
         assert x.shape == (B, H, W, cin)
-        transformed = aeff is not None or relu or add is not None
-        routed.append(pfd.conv_link_xf_path(cin, cout, transformed))
+        flags = pfd.link_flags(aeff, relu, add, te, stats)
+        routed.append(pfd.conv_link_xf_path(cin, cout, flags))
         y = torch.zeros((), dtype=BF).expand(B, H, W, cout)
         return y, (torch.ones(B, 1, 2, cout) if stats else None)
 

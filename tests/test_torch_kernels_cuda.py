@@ -68,20 +68,21 @@ def test_conv_link_matches_plain(dev, cin, cout, gn, add, stats, B, H, w):
 
 # the transformed links that take K1's transform-warp path: fa (256 ->
 # 256, GroupNorm, ReLU, add and te; also with stats), the 'add' chain's pr0
-# (256 -> 64 with stats), and two flag sets the chains do not use (their
-# transform reads the flags at run time): GroupNorm and ReLU without the
-# add map, the add map and te alone, on both output widths; at the serve
-# latent and the ragged shapes above
+# (256 -> 64 with stats); and two flag sets the chains do not use, which
+# take K1's own loop: GroupNorm and ReLU without the add map, the add map
+# and te alone, on both output widths; at the serve latent and the ragged
+# shapes above
 @pytest.mark.parametrize("cout,gn,add,stats", [
     (256, True, True, False), (256, True, True, True), (64, True, True, True),
     (64, True, False, True), (256, False, True, True), (64, False, True, False)],
     ids=["fa", "fa-stats", "add-pr0", "gn-only", "add-only-256", "add-only-64"])
 @pytest.mark.parametrize("B,H,w", [(8, 176, 608), (2, 6, 129), (3, 1, 5), (3, 2, 257)])
 def test_conv_link_xf_matches_untransformed_link(dev, cout, gn, add, stats, B, H, w):
-    """A link on the transform-warp path equals, bit for bit (y and
-    partials), the untransformed link on the plainly transformed input:
-    the same products in the same order. Counted as one conv_link and one
-    conv_link_xf launch; the untransformed link as one conv_link only."""
+    """A transformed link equals, bit for bit (y and partials), the
+    untransformed link on the plainly transformed input: the same products
+    in the same order. With the chains' flags it takes the transform-warp
+    path, counted as one conv_link and one conv_link_xf launch; with other
+    flags, and the untransformed link, one conv_link only."""
     g = torch.Generator(device=dev).manual_seed(11)
     bf, cin = torch.bfloat16, 256
     x = torch.randn(B, H, w, cin, generator=g, device=dev).to(bf)
@@ -94,16 +95,18 @@ def test_conv_link_xf_matches_untransformed_link(dev, cout, gn, add, stats, B, H
     if add:
         kw.update(add=torch.randn(B, H, w, cin, generator=g, device=dev).to(bf),
                   te=(0.1 * torch.randn(B, cin, generator=g, device=dev)).to(bf))
-    assert fd.conv_link_xf_path(cin, cout, True)
+    xf = gn and add
+    assert fd.conv_link_xf_path(cin, cout, fd.link_flags(
+        kw.get("aeff"), gn, kw.get("add"), kw.get("te"), stats)) == xf
     n0 = dict(LAUNCHES)
     y, ps = fd.conv_link(x, wt, bias, stats=stats, **kw)
-    assert LAUNCHES["conv_link_xf"] == n0["conv_link_xf"] + 1
+    assert LAUNCHES["conv_link_xf"] == n0["conv_link_xf"] + xf
     v = fd._link_input_plain(x, kw.get("aeff"), kw.get("beff"), gn, kw.get("add"),
                              kw.get("te")).to(bf).contiguous()
     y_u, ps_u = fd.conv_link(v, wt, bias, stats=stats)
     torch.cuda.synchronize()
     assert LAUNCHES["conv_link"] == n0["conv_link"] + 2
-    assert LAUNCHES["conv_link_xf"] == n0["conv_link_xf"] + 1
+    assert LAUNCHES["conv_link_xf"] == n0["conv_link_xf"] + xf
     assert torch.equal(y, y_u)
     assert (ps is None) == (not stats)
     if stats:
@@ -117,9 +120,8 @@ def test_conv_link_xf_path_matches_library(dev):
     for cin in (16, 64, 80, 128, 192, 256, 512):
         for cout in (16, 64, 128, 256, 512):
             for flags in range(32):
-                transformed = bool(flags & 7)
                 assert bool(lib.conv_link_xf_path(cin, cout, flags)) == fd.conv_link_xf_path(
-                    cin, cout, transformed), (cin, cout, flags)
+                    cin, cout, flags), (cin, cout, flags)
 
 
 def test_ddim_step_matches_plain(dev):

@@ -39,7 +39,7 @@ from diffusiondepth_tpu.models.nlspn import NLSPNModel as JNLSPN  # noqa: E402
 from diffusiondepth_tpu.parallel import mesh as jmesh  # noqa: E402
 from diffusiondepth_tpu_torch import Config, build_model  # noqa: E402
 from diffusiondepth_tpu_torch.models.backbones.swin import (  # noqa: E402
-    SwinBlock, SwinTransformer, window_partition, window_reverse,
+    SwinBlock, SwinTransformer, relative_position_index, window_partition, window_reverse,
 )
 from diffusiondepth_tpu_torch.models.necks.transformer import PixelTransformerDecoder  # noqa: E402
 from diffusiondepth_tpu_torch.parallel import (  # noqa: E402
@@ -227,7 +227,7 @@ def test_swin_dropout_is_the_einsum_path_with_the_drawn_masks():
     y = torch.roll(y, (-2, -2), dims=(1, 2))
     w = window_partition(y, 4)
     q, k, v = F.linear(w, msa.qkv.weight, msa.qkv.bias).reshape(2, 6, 16, 3, 2, 16).unbind(3)
-    bias = msa.relative_position_bias_table[msa.relative_position_index].reshape(16, 16, 2)
+    bias = msa.relative_position_bias_table[relative_position_index(4, 4).reshape(-1)].reshape(16, 16, 2)
     logits = torch.einsum("bwqhd,bwkhd->bwhqk", q * msa.scale, k) + bias.permute(2, 0, 1)
     logits = logits + blk._mask(8, 12, CPU)[None, :, None]
     attn = drop(torch.softmax(logits, -1), drops["attn"])

@@ -18,7 +18,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from diffusiondepth_tpu_torch import Config, build_model, make_eval_step, trace
+from diffusiondepth_tpu_torch.diffusion.ddim import DDIMSchedule
 from diffusiondepth_tpu_torch.ops import native
+from diffusiondepth_tpu_torch.ops.resize import resize_bilinear
 from diffusiondepth_tpu_torch.tools import analyze_trace
 
 STEPS = 3
@@ -147,6 +149,58 @@ def test_counter_deltas_sit_on_their_spans(monkeypatch):
     assert (request.counters["h2d_copies"], request.counters["h2d_bytes"]) == (2, 16)
     assert request.counters["launches.conv_link"] == 2
     assert sum(request.counters.values()) == 2 + 16 + 2
+
+
+def test_constants_copy_once_per_key_device_and_dtype(monkeypatch):
+    """A constant made on the host is copied once per (key, device, dtype):
+    two resizes of one shape copy their two matrices once, a resize in
+    another dtype copies its own; the sampler's tables (the timesteps and
+    the DDIM-step rows, as the head's ``_sample`` takes them) once each,
+    whatever the number of lookups. On the host they equal the numpy
+    tables."""
+    monkeypatch.setattr(native, "_CONSTANTS", {})
+    sched = DDIMSchedule()
+    x = torch.zeros(2, 3, 5, 4, device="meta")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("request"):
+            for _ in range(2):
+                resize_bilinear(x, (6, 10))
+                sched.table_on("meta", "timesteps", 4, "biased")
+                sched.table_on("meta", "sched", 4, "biased")
+            with trace.span("bf16"):
+                resize_bilinear(x.to(torch.bfloat16), (6, 10), align_corners=True)
+                resize_bilinear(x.to(torch.bfloat16), (6, 10), align_corners=True)
+    request, bf16 = trace.spans()
+    assert request.counters["h2d_copies"] == 2 + 2 + 2 and bf16.counters["h2d_copies"] == 2
+    assert request.counters["h2d_bytes"] == 4 * (6 * 3 + 10 * 5) + 8 * 4 + 4 * 16 + 2 * (
+        6 * 3 + 10 * 5)
+    tables = sched.inference_tables(4, sched.biased_timesteps(4))
+    np.testing.assert_array_equal(sched.table_on("cpu", "sched", 4, "biased").numpy(),
+                                  tables.sched())
+    np.testing.assert_array_equal(sched.table_on("cpu", "timesteps", 4, "biased").numpy(),
+                                  tables.timesteps)
+
+
+def test_constant_made_while_compiling_is_not_kept(monkeypatch):
+    """While a program is traced (``torch.compiler.is_compiling``) a
+    constant is made anew, and neither kept nor taken from what was kept:
+    no tensor of a trace outlives it."""
+    monkeypatch.setattr(native, "_CONSTANTS", {})
+    made = []
+
+    def make():
+        made.append(1)
+        return [1.0, 2.0]
+
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    native.constant(("k",), make, "cpu")
+    assert native._CONSTANTS == {} and len(made) == 1
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: False)
+    kept = native.constant(("k",), make, "cpu")
+    assert native.constant(("k",), make, "cpu") is kept and len(made) == 2
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    assert native.constant(("k",), make, "cpu") is not kept and len(made) == 3
+    assert list(native._CONSTANTS.values()) == [kept]
 
 
 def test_new_session_starts_afresh():
@@ -339,10 +393,11 @@ CELLS = {  # the benchmark's configurations (h100bench/configs), batch 8 at 352x
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_h2d_copies_count_the_traces_copies(dev, cell, tmp_path):
-    """Over one request of each benchmark configuration at its cells'
-    shapes (batch 8, 352x1216, 20 steps, bf16, a given starting latent),
-    the ``request`` span's ``h2d_copies`` equals the device-only trace's
-    host-to-device copies."""
+    """Over a request of each benchmark configuration at its cells' shapes
+    (batch 8, 352x1216, 20 steps, bf16, a given starting latent), the
+    ``request`` span's ``h2d_copies`` equals the device-only trace's
+    host-to-device copies: on the first request after the constants on the
+    card are dropped, some, and on the next, none."""
     cfg = Config(model_name="Diffusion_DCbase_", inference_steps=20, opt_level="O1",
                  seed=5, **CELLS[cell]).finalize()
     step = make_eval_step(build_model(cfg, device=dev))
@@ -351,8 +406,11 @@ def test_h2d_copies_count_the_traces_copies(dev, cell, tmp_path):
              "gt": torch.rand(8, 352, 1216, 1, generator=g, device=dev) * 79 + 1}
     init = torch.randn(8, 176, 608, 16, generator=g, device=dev)
     step(batch, init_latent=init)
-    events = device_only(lambda: step(batch, init_latent=init), tmp_path / "trace.json")
-    htod = [e for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
-            and "HtoD" in e["name"]]
-    (request,) = [s for s in trace.spans() if s.name == "request"]
-    assert request.counters["h2d_copies"] == len(htod) > 0
+    native._CONSTANTS.clear()
+    for first in (True, False):
+        events = device_only(lambda: step(batch, init_latent=init), tmp_path / "trace.json")
+        htod = [e for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
+                and "HtoD" in e["name"]]
+        (request,) = [s for s in trace.spans() if s.name == "request"]
+        assert request.counters["h2d_copies"] == len(htod)
+        assert (len(htod) > 0) == first, (first, len(htod))
