@@ -361,6 +361,21 @@ def bound(nbytes: float, flops: float, peak: float):
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+def k1_l2_bytes(bsz: int, lh: int, lw: int, cin: int, cout: int, add: bool, bm: int):
+    """The bytes K1's blocks pull from L2 into shared memory and registers
+    at this launch (csrc/conv_link.cu, Conv3x3): each block of ``bm``
+    pixels of one row and ``bn`` output channels loads, per chunk of ``kc``
+    input channels, a (3, bm + 2, kc) halo and nine (bn, kc) weight tiles,
+    and with the add map that map over the same halo. Returns (weight
+    bytes, halo and add-map bytes)."""
+    kc = 64 if cin % 64 == 0 else 16
+    bn = 256 if cout % 256 == 0 else (64 if cout % 64 == 0 else 16)
+    blocks = bsz * lh * math.ceil(lw / bm) * (cout // bn)
+    chunks = cin // kc
+    halo = blocks * chunks * 3 * (bm + 2) * kc * 2
+    return blocks * chunks * 9 * bn * kc * 2, halo * (2 if add else 1)
+
+
 # the KITTI-DC tree of phase 11: split -> (frames, height, width)
 KITTI_TREE = {"train": (16, 375, 1242), "val": (8, 375, 1242), "test": (8, 352, 1216)}
 # phase 11's model and data flags: the flagship at the README's crop
@@ -2565,8 +2580,10 @@ def main() -> int:
                       + (bsz * lh * math.ceil(lw / k1_bm) * 2 * cout * 4 if stats else 0))
             flops = 2.0 * n_pix * 9 * cin * cout
             bms, by = bound(nbytes, flops, BF16_FLOPS)
+            l2_w, l2_x = k1_l2_bytes(bsz, lh, lw, cin, cout, add, k1_bm)
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                       tflops=flops / ms / 1e9)
+                       tflops=flops / ms / 1e9, l2_weight_bytes=l2_w, l2_halo_bytes=l2_x,
+                       l2_TBps=(l2_w + l2_x) / ms / 1e9)
             emit(rec)
             for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
                            ("library_ms", lib_ms), ("flops", flops), ("bytes", nbytes)):

@@ -189,9 +189,13 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 
 // Shared-memory matrix descriptor of a swizzled tile of RB-byte rows
 // (layout 1 = 128-byte swizzle, 3 = 32-byte swizzle). K-major operands:
@@ -289,21 +293,6 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], const uint32_t (
     wgmma_m64n256k16<TRANS_B>(d, a, desc_b);
 }
 
-// Sum two column values over the 16 rows of a warp's accumulator tile
-// (the lanes with equal lane % 4 hold the same columns) and store the two
-// sums at row[col], row[col + 1] from lanes 0-3.
-__device__ __forceinline__ void warp_column_pair(float* row, int col, float x0, float x1) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    x0 += __shfl_xor_sync(0xffffffffu, x0, off);
-    x1 += __shfl_xor_sync(0xffffffffu, x1, off);
-  }
-  if ((threadIdx.x & 31) < 4) {
-    row[col] = x0;
-    row[col + 1] = x1;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // tensor maps (host)
 // ---------------------------------------------------------------------------
@@ -398,17 +387,21 @@ struct Conv3x3 {
   static constexpr uint32_t B_BYTES = BN * RB;
   static constexpr uint32_t B_STRIDE = (B_BYTES + 1023) / 1024 * 1024;
   static constexpr uint32_t RING_BYTES = 2 * A_STRIDE + NB * B_STRIDE;
-  // an epilogue may stage the f32 tile, rows padded by 8 floats, and
-  // 2 x 2048 f32 of column sums over the ring once the loop is done
+  // an epilogue may stage the f32 tile, rows padded by 8 floats (K1: the
+  // per-thread column sums, K5: the tile), then 2 x 2048 f32 of column
+  // sums (K5) or the bf16 tile (K1), over the ring once the loop is done
   static constexpr int OUT_LD = BN + 8;
-  static constexpr uint32_t OUT_BYTES = BM * OUT_LD * 4 + 2 * 2048 * 4;
+  static constexpr uint32_t OUT_BYTES =
+      BM * OUT_LD * 4 + (2 * 2048 * 4 > BM * BN * 2 ? 2 * 2048 * 4 : BM * BN * 2);
   static constexpr uint32_t BAR_OFF = RING_BYTES > OUT_BYTES ? RING_BYTES : OUT_BYTES;
   // + 1024 to align the dynamic shared memory's start by hand
   static constexpr uint32_t SMEM = BAR_OFF + 8 * (4 + 2 * NB) + 1024;
   static_assert(KC == 64 || KC == 16, "chunk width");
   static_assert(SMEM <= 232448 / MIN_BLOCKS - 1024, "shared memory");
-  // the epilogue's column sums reuse the halo stages
-  static_assert(2 * 8 * BN * 4 <= 2 * A_STRIDE, "reduction space");
+  // Products left in flight while the next tap is loaded: one, with a
+  // second register set of A fragments, where a block has the SM to
+  // itself; none where two blocks share its registers.
+  static constexpr int IN_FLIGHT = MIN_BLOCKS == 1 ? 1 : 0;
 
   uint8_t* base;
 
@@ -425,7 +418,6 @@ struct Conv3x3 {
   __device__ uint64_t* a_empty(int i) const { return bar(2 + i); }
   __device__ uint64_t* b_full(int i) const { return bar(4 + i); }
   __device__ uint64_t* b_empty(int i) const { return bar(4 + NB + i); }
-  __device__ float* red() const { return reinterpret_cast<float*>(base); }
   __device__ float* out_tile() const { return reinterpret_cast<float*>(base); }
   __device__ float* out_red() const { return out_tile() + BM * OUT_LD; }
 
@@ -492,7 +484,9 @@ struct Conv3x3 {
   }
 
   // The consumers' nine taps of chunk c on its halo stage, in (tap, k16)
-  // order, each waited out; then the stage is released.
+  // order. IN_FLIGHT taps' products run while the next tap's weight tile
+  // is awaited and its A fragments are loaded: a tap's weight stage is
+  // released once its group is done; the halo stage after all nine.
   __device__ __forceinline__ void taps(float (&acc)[BN / 2], int c) const {
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -502,25 +496,35 @@ struct Conv3x3 {
     const int khalf = lane >> 4;
     const int a = c & 1;
     const uint32_t a_addr = smem_u32(a_stage(a));
+    // unrolled where the A register sets alternate
+    uint32_t af[IN_FLIGHT + 1][KC / 16][4];
+#pragma unroll(IN_FLIGHT == 1 ? 9 : 1)
     for (int tap = 0; tap < 9; ++tap) {
       const int i = c * 9 + tap;
       const int s = i % NB;
       mbar_wait(b_full(s), (i / NB) & 1);
       const uint32_t row = (tap / 3) * HALO + mrow + tap % 3;
-      uint32_t af[KC / 16][4];
+      uint32_t(&f)[KC / 16][4] = af[tap % (IN_FLIGHT + 1)];
 #pragma unroll
       for (int ks = 0; ks < KC / 16; ++ks)
-        ldmatrix_x4(af[ks], a_addr + swz<RB>(row * RB + (2 * ks + khalf) * 16));
+        ldmatrix_x4(f[ks], a_addr + swz<RB>(row * RB + (2 * ks + khalf) * 16));
       const uint32_t b_addr = smem_u32(b_stage(s));
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < KC / 16; ++ks)
-        wgmma_m64k16<BN, 0>(acc, af[ks], make_desc<RB>(b_addr + ks * 32, 16, 8 * RB));
+        wgmma_m64k16<BN, 0>(acc, f[ks], make_desc<RB>(b_addr + ks * 32, 16, 8 * RB));
       wgmma_commit();
-      wgmma_wait_all();
-      if (lane == 0) mbar_arrive(b_empty(s));
+      if (tap >= IN_FLIGHT) {
+        wgmma_wait<IN_FLIGHT>();
+        if (lane == 0) mbar_arrive(b_empty((i - IN_FLIGHT) % NB));
+      }
     }
-    if (lane == 0) mbar_arrive(a_empty(a));
+    wgmma_wait<0>();
+    if (lane == 0) {
+#pragma unroll
+      for (int tap = 9 - IN_FLIGHT; tap < 9; ++tap) mbar_arrive(b_empty((c * 9 + tap) % NB));
+      mbar_arrive(a_empty(a));
+    }
   }
 };
 

@@ -15,9 +15,22 @@
 // (T(0) != 0).
 //
 // What bounds it on the H100: at the bs8 eval latent (8, 176, 608) the
-// 256->256 links do 2*B*H*W*9*Cin*Cout = 1.01 TFLOP for ~0.5 GB of traffic,
-// ~2000 FLOP per byte, far above the card's ~295 FLOP/byte ridge: the link
-// is bound by tensor-core operations (1.02 ms at 989 TFLOP/s).
+// 256->256 links do 2*B*H*W*9*Cin*Cout = 1.01 TFLOP for ~0.5 GB of device
+// memory traffic, ~2000 FLOP per byte, far above the card's ~295 FLOP/byte
+// ridge: 1.02 ms of tensor-core operations at 989 TFLOP/s. Inside the card
+// each of the 7040 blocks pulls every weight tile from L2 (fb: 8.30 GB of
+// weights and 1.41 GB of halo a launch, 5.9 TB/s at 1.65 ms), yet L2 does
+// not hold the links back (measured, H100 SXM at 700 W): without the
+// products fb's loads and waits take 1.13-1.15 ms (8.4-8.6 TB/s from L2),
+// and clock64() stamps gave a block 39.5K cycles of main loop for 36.9K of
+// tensor-core work, 2.9K of them waiting for weight tiles. Sharing each
+// weight tile over a cluster of two or four blocks (TMA multicast) was
+// bit-equal and slower: each pair advances at its slower block's pace. The
+// stamps found the time outside the tensor cores instead: each tap's
+// products waited out before the next tap's operands were loaded (a
+// 64-wide tile's main loop took 19.7K cycles for 9.2K of products), and an
+// epilogue that overlaps nothing (one block an SM; 7.8K cycles of a 256-wide
+// block without statistics, 18.4K with them).
 //
 // What the design does about it: the implicit GEMM of csrc/conv3x3_sm90.cuh
 // (M = 128 output pixels of one row segment, N = the whole Cout up to 256,
@@ -26,14 +39,19 @@
 // nine taps, and three (N = 256) or six weight stages. With N = 256 the
 // halo of a row segment is staged and transformed once for all output
 // channels. One producer warpgroup (one thread issues TMA) and two
-// consumer warpgroups. The epilogue adds the bias, writes y as bf16 pairs,
-// and reduces the statistics from the wgmma fragments: warp shuffles over
-// each warp's 16 rows, then the eight warps in a fixed order through
-// shared memory. No atomics: two launches give the same bits. The caller
-// sums the (B, n_blocks, 2, Cout) partials. The weights arrive as
-// (3, 3, Cout, Cin) (K contiguous); the wrapper transposes them. T is
-// computed on bf16 pairs (bf2_mul / bf2_add below: the same bits as the
-// TPU kernel's f32 operations each rounded to bf16).
+// consumer warpgroups; where a block has the SM to itself one tap's
+// products stay in flight while the next tap's weight tile is awaited and
+// its operands are loaded. The epilogue adds the bias, stages y in shared
+// memory and writes it in 16-byte stores along the rows, and reduces the
+// statistics through shared memory: each thread stores its column sums
+// over its two rows, then the 64 row groups are summed in a fixed order.
+// Measured at the bs8 latent, from the warp-shuffle statistics, the 4-byte
+// y stores and each tap waited out: ne1 1.02 -> 0.73 ms, fa 2.12 -> 1.98,
+// fb 1.78 -> 1.65, pr0 0.75 -> 0.61. No atomics: two launches give the
+// same bits. The caller sums the (B, n_blocks, 2, Cout) partials. The
+// weights arrive as (3, 3, Cout, Cin) (K contiguous); the wrapper
+// transposes them. T is computed on bf16 pairs (bf2_mul / bf2_add below:
+// the same bits as the TPU kernel's f32 operations each rounded to bf16).
 //
 // Two kernels share that loop:
 //
@@ -120,6 +138,10 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(addr));
   return v;
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void sts128_if(bool p, uint32_t addr, const uint4& v) {
@@ -222,7 +244,13 @@ struct NoFlip {
 };
 
 // The epilogue of both kernels, in the 256 consumer threads: bias, bf16 y,
-// and the statistics of the f32 values.
+// and the statistics of the f32 values. y is staged in shared memory as
+// rows of BN bf16 (each row's 16-byte units permuted by the row's low
+// three bits, so that the eight rows a warp writes at once fall on
+// distinct banks) and leaves in 16-byte stores along the rows: a row
+// segment's BN channels are contiguous in y, the whole tile when BN =
+// Cout. Straight from the fragments, each 4-byte store of a warp would
+// touch eight pixels' rows, 16 bytes of each.
 template <class Cfg>
 __device__ __forceinline__ void link_epilogue(const Cfg& pipe, const float (&acc)[Cfg::BN / 2],
                                               const float* __restrict__ bias,
@@ -231,12 +259,21 @@ __device__ __forceinline__ void link_epilogue(const Cfg& pipe, const float (&acc
                                               int w0, int n0, int seg, int H, int W, int Cout,
                                               int n_wtiles, int flags) {
   constexpr int BN = Cfg::BN;
+  constexpr int UPR = BN / 8;  // 16-byte units of a staged row
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m0 = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
   const bool stats = flags & F_STATS;
-  float* red = pipe.red();  // (2, 8 warps, BN) f32 over the halo stages
-  consumer_sync();          // every warp is done reading the stages
+  // a staged row's unit u sits at unit place(u, r) of row r
+  auto place = [](int u, int r) { return UPR >= 8 ? u ^ (r & 7) : u; };
+  const uint32_t ys = smem_u32(pipe.out_red());
+  // each thread's column sums over its rows m0 and m0 + 8: row group
+  // warp * 8 + lane / 4 of 64, then the 64 groups of the sums of squares,
+  // Cfg::OUT_LD floats a group, over the ring
+  constexpr int LD = Cfg::OUT_LD;
+  float* const sums = pipe.out_tile();
+  float* const mine = sums + (warp * 8 + (lane >> 2)) * LD;
+  consumer_sync();  // every warp is done reading the stages
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int n = 8 * j + 2 * (lane & 3);
@@ -245,13 +282,13 @@ __device__ __forceinline__ void link_epilogue(const Cfg& pipe, const float (&acc
     float s0 = 0.0f, s1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int ww = w0 + m0 + 8 * half;
-      if (ww < W) {
-        const float v0 = acc[4 * j + 2 * half] + b0;
-        const float v1 = acc[4 * j + 2 * half + 1] + b1;
-        *reinterpret_cast<__nv_bfloat162*>(
-            y + ((static_cast<size_t>(b) * H + h) * W + ww) * Cout + n0 + n) =
-            __floats2bfloat162_rn(v0, v1);
+      const int r = m0 + 8 * half;
+      const float v0 = acc[4 * j + 2 * half] + b0;
+      const float v1 = acc[4 * j + 2 * half + 1] + b1;
+      const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+      sts32(ys + r * (BN * 2) + place(j, r) * 16 + 4 * (lane & 3),
+            *reinterpret_cast<const uint32_t*>(&p));
+      if (w0 + r < W) {
         s0 += v0;
         s1 += v1;
         q0 += v0 * v0;
@@ -259,24 +296,50 @@ __device__ __forceinline__ void link_epilogue(const Cfg& pipe, const float (&acc
       }
     }
     if (stats) {
-      warp_column_pair(red + warp * BN, n, s0, s1);
-      warp_column_pair(red + (8 + warp) * BN, n, q0, q1);
+      *reinterpret_cast<float2*>(mine + n) = make_float2(s0, s1);
+      *reinterpret_cast<float2*>(mine + 64 * LD + n) = make_float2(q0, q1);
     }
   }
-  if (stats) {
+  consumer_sync();
+  {
+    const int units = min(Cfg::BM, W - w0) * UPR;
+    __nv_bfloat16* const yt = y + ((static_cast<size_t>(b) * H + h) * W + w0) * Cout + n0;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < units; i += 256) {
+      const int r = i / UPR, u = i % UPR;
+      *reinterpret_cast<uint4*>(yt + static_cast<size_t>(r) * Cout + u * 8) =
+          lds128(ys + r * (BN * 2) + place(u, r) * 16);
+    }
+  }
+  if (!stats) return;
+  // the 64 groups in order: P threads a column each sum 64 / P of them,
+  // then the first BN threads sum the P parts in order
+  constexpr int P = 256 / BN;
+  const int n = threadIdx.x % BN;
+  const int part = threadIdx.x / BN;
+  float s = 0.0f, q = 0.0f;
+#pragma unroll 8
+  for (int g = part * (64 / P); g < (part + 1) * (64 / P); ++g) {
+    s += sums[g * LD + n];
+    q += sums[(64 + g) * LD + n];
+  }
+  if constexpr (P > 1) {
+    consumer_sync();  // every thread has read its groups
+    sums[part * BN + n] = s;
+    sums[(P + part) * BN + n] = q;
     consumer_sync();
-    for (int n = threadIdx.x; n < BN; n += 256) {
-      float s = 0.0f, q = 0.0f;
-      for (int wp = 0; wp < 8; ++wp) {
-        s += red[wp * BN + n];
-        q += red[(8 + wp) * BN + n];
-      }
-      const size_t blk = static_cast<size_t>(b) * H * n_wtiles + static_cast<size_t>(seg);
-      float* dst = partials + blk * 2 * Cout + n0 + n;
-      dst[0] = s;
-      dst[Cout] = q;
+    if (part != 0) return;
+    s = q = 0.0f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      s += sums[k * BN + n];
+      q += sums[(P + k) * BN + n];
     }
   }
+  const size_t blk = static_cast<size_t>(b) * H * n_wtiles + static_cast<size_t>(seg);
+  float* dst = partials + blk * 2 * Cout + n0 + n;
+  dst[0] = s;
+  dst[Cout] = q;
 }
 
 template <int BN, int KC>
